@@ -1,10 +1,13 @@
-"""racon-compatible CLI of the port (console script `raconx-torch`).
+"""racon-compatible CLI of the port (console script `raconx-torch`;
+reference: src/main.cpp).
 
 Same positional arguments, options, defaults, FASTA-on-stdout contract and
-error messages as racon_tpu.cli (whose HELP text and build_config it
-reuses), with the backends auto, cuda, native and python. racon's CUDA
-flags (-c/-b/--cudaaligner-*) select the cuda backend. Not available here:
---profile and --distributed (multi-GPU is a later slice).
+error messages as racon_tpu/cli.py, with the backends auto (= cuda),
+cuda, native and python. racon's CUDA flags (-c/-b/--cudaaligner-*)
+select the cuda backend. Not available here: --profile and --distributed
+(multi-GPU is a later slice). The arguments and the input files are
+checked before the backend is resolved, so racon's own error messages
+come first; without a GPU, auto and cuda then exit 1 with a message.
 """
 
 from __future__ import annotations
@@ -12,16 +15,91 @@ from __future__ import annotations
 import argparse
 import sys
 
-from racon_tpu import RACON_VERSION
-from racon_tpu.cli import HELP as _HELP, build_config
-from racon_tpu.errors import RaconError
-from racon_tpu.models.polish_model import PolisherConfig
-
-from .backends import BACKENDS, BackendUnavailable, resolve_backend
+from . import RACON_VERSION
+from .backends import BACKENDS, BackendUnavailable
+from .errors import RaconError
+from .models.polish_model import PolisherConfig, PolisherType
 from .polisher import create_polisher
 
-HELP = _HELP.replace("compute backend: auto, tpu, native, python",
-                     "compute backend: " + ", ".join(BACKENDS))
+HELP = """usage: racon [options ...] <sequences> <overlaps> <target sequences>
+
+    #default output is stdout
+    <sequences>
+        input file in FASTA/FASTQ format (can be compressed with gzip)
+        containing sequences used for correction
+    <overlaps>
+        input file in MHAP/PAF/SAM format (can be compressed with gzip)
+        containing overlaps between sequences and target sequences
+    <target sequences>
+        input file in FASTA/FASTQ format (can be compressed with gzip)
+        containing sequences which will be corrected
+
+    options:
+        -u, --include-unpolished
+            output unpolished target sequences
+        -f, --fragment-correction
+            perform fragment correction instead of contig polishing
+            (overlaps file should contain dual/self overlaps!)
+        -w, --window-length <int>
+            default: 500
+            size of window on which POA is performed
+        -q, --quality-threshold <float>
+            default: 10.0
+            threshold for average base quality of windows used in POA
+        -e, --error-threshold <float>
+            default: 0.3
+            maximum allowed error rate used for filtering overlaps
+        --no-trimming
+            disables consensus trimming at window ends
+        -m, --match <int>
+            default: 3
+            score for matching bases
+        -x, --mismatch <int>
+            default: -5
+            score for mismatching bases
+        -g, --gap <int>
+            default: -4
+            gap penalty (must be negative)
+        -t, --threads <int>
+            default: 1
+            number of threads
+        --backend <str>
+            default: auto
+            compute backend: """ + ", ".join(BACKENDS) + """
+            (auto = cuda, which needs a GPU; native and python run on
+            the host only when named)
+        --band-width <int>
+            default: 0 (auto: 10%% of mean overlap length)
+            band width for device overlap alignment
+        --max-window-depth <int>
+            default: 200
+            maximum layers per window on the device path
+        --refine-passes <int>
+            default: 4
+            iterative consensus refinement passes (1 = single-pass POA)
+        --candidate-frac <float> / --candidate-min <int>
+            default: 0.15 / 2
+            support thresholds for insertion candidates between passes
+        --version
+            prints the version number
+        -h, --help
+            prints the usage
+
+    accepted for drop-in compatibility with racon's CUDA build (they select
+    the cuda backend; batch counts are managed automatically):
+        -c, --cudapoa-batches <int>
+            default: 0
+            number of batches for CUDA accelerated polishing
+        -b, --cuda-banded-alignment
+            use banding approximation for polishing on GPU. Only applicable
+            when -c is used.
+        --cudaaligner-batches <int>
+            default: 0
+            number of batches for CUDA accelerated alignment
+        --cudaaligner-band-width <int>
+            default: 0
+            band width for cuda alignment (0 = auto band width)
+"""
 
 
 def parser() -> argparse.ArgumentParser:
@@ -56,18 +134,31 @@ def parser() -> argparse.ArgumentParser:
 
 
 def make_config(args: argparse.Namespace) -> PolisherConfig:
-    """The run's PolisherConfig from parsed arguments, with the backend
-    resolved (racon's CUDA flags select cuda; "auto" says on stderr what
-    it took). Raises BackendUnavailable."""
-    requested = args.backend
-    if requested == "auto" and (args.cudapoa_batches
-                                or args.cuda_banded_alignment
-                                or args.cudaaligner_batches):
-        requested = "cuda"
-    args.backend = resolve_backend(requested)
-    if requested == "auto":
-        sys.stderr.write(f"[racon::] backend auto -> {args.backend}\n")
-    return build_config(args)
+    """The run's PolisherConfig from parsed arguments (racon_tpu/cli.py
+    build_config). racon's CUDA flags select cuda; the backend is resolved
+    later, by create_polisher, after the inputs are checked."""
+    backend = args.backend
+    if backend == "auto" and (args.cudapoa_batches
+                              or args.cuda_banded_alignment
+                              or args.cudaaligner_batches):
+        backend = "cuda"
+    return PolisherConfig(
+        type=PolisherType.kF if args.fragment_correction else PolisherType.kC,
+        window_length=args.window_length,
+        quality_threshold=args.quality_threshold,
+        error_threshold=args.error_threshold,
+        trim=not args.no_trimming,
+        match=args.match,
+        mismatch=args.mismatch,
+        gap=args.gap,
+        num_threads=args.threads,
+        backend=backend,
+        band_width=args.band_width or args.cudaaligner_band_width,
+        max_window_depth=args.max_window_depth,
+        refine_passes=args.refine_passes,
+        candidate_frac=args.candidate_frac,
+        candidate_min=args.candidate_min,
+    )
 
 
 def main(argv: list[str] | None = None) -> int:
@@ -87,17 +178,15 @@ def main(argv: list[str] | None = None) -> int:
         print(HELP, end="")
         return 1
     try:
-        cfg = make_config(args)
-    except BackendUnavailable as e:
-        sys.stderr.write(f"[racon::] error: {e}\n")
-        return 1
-    try:
         polisher = create_polisher(args.inputs[0], args.inputs[1],
-                                   args.inputs[2], cfg)
+                                   args.inputs[2], make_config(args))
         polisher.initialize()
         polished = polisher.polish(not args.include_unpolished)
     except RaconError as e:
         sys.stderr.write(e.message + "\n")
+        return 1
+    except BackendUnavailable as e:
+        sys.stderr.write(f"[racon::] error: {e}\n")
         return 1
     out = sys.stdout.buffer
     for name, data in polished:

@@ -1,4 +1,4 @@
-// PyTorch bindings of the port's four kernels. The only translation unit
+// PyTorch bindings of the port's kernels. The only translation unit
 // that includes torch/extension.h: the .cu files export plain C launchers
 // (also loadable with ctypes) and compile without PyTorch's headers.
 #include <torch/extension.h>
@@ -15,6 +15,9 @@ int rtt_nw_sweep(const uint8_t* q4, const uint8_t* t4, const uint8_t* dcb,
 int rtt_rle_walk(const int32_t* moves, const int32_t* m, const int32_t* n,
                  uint8_t* payload, int B, int m_cap, int n_cap, int W, int E,
                  cudaStream_t stream);
+int rtt_packed_walk(const int32_t* moves, const int32_t* m, const int32_t* n,
+                    uint8_t* payload, int B, int m_cap, int n_cap, int W,
+                    int S, cudaStream_t stream);
 int rtt_myers_sweep(const uint8_t* q4, const uint8_t* t4, int32_t* planes,
                     int B, int m_cap, int n_cap, int W, cudaStream_t stream);
 int rtt_myers_walk(const int32_t* planes, const int32_t* m, const int32_t* n,
@@ -53,8 +56,9 @@ void nw_sweep(const at::Tensor& q4, const at::Tensor& t4,
   check(dcb, "dcb", at::kByte, {B, n_cap / 8});
   check(moves, "moves", at::kInt, {B, m_cap / 16, W});
   check(score, "score", at::kInt, {B});
-  TORCH_CHECK(W % 32 == 0 && W <= 1024 && m_cap % 16 == 0 &&
-              n_cap % 32 == 0 && n_cap - m_cap - W / 2 <= 0,
+  TORCH_CHECK((W <= 1024 ? W % 32 == 0 : W % 64 == 0 && W <= 2048) &&
+              m_cap % 16 == 0 && n_cap % 32 == 0 &&
+              n_cap - m_cap - W / 2 <= 0,
               "nw_sweep: unsupported geometry");
   done(rtt_nw_sweep(q4.data_ptr<uint8_t>(), t4.data_ptr<uint8_t>(),
                     dcb.data_ptr<uint8_t>(), moves.data_ptr<int32_t>(),
@@ -73,6 +77,20 @@ void rle_walk(const at::Tensor& moves, const at::Tensor& m,
   done(rtt_rle_walk(moves.data_ptr<int32_t>(), m.data_ptr<int32_t>(),
                     n.data_ptr<int32_t>(), payload.data_ptr<uint8_t>(), B,
                     m_cap, n_cap, W, E, stream()));
+}
+
+void packed_walk(const at::Tensor& moves, const at::Tensor& m,
+                 const at::Tensor& n, const at::Tensor& payload,
+                 int64_t m_cap, int64_t n_cap, int64_t W, int64_t S) {
+  const int64_t B = moves.size(0);
+  check(moves, "moves", at::kInt, {B, m_cap / 16, W});
+  check(m, "m", at::kInt, {B});
+  check(n, "n", at::kInt, {B});
+  check(payload, "payload", at::kByte, {B, S / 4 + 1});
+  TORCH_CHECK(S % 4 == 0, "packed_walk: step budget must be a multiple of 4");
+  done(rtt_packed_walk(moves.data_ptr<int32_t>(), m.data_ptr<int32_t>(),
+                       n.data_ptr<int32_t>(), payload.data_ptr<uint8_t>(), B,
+                       m_cap, n_cap, W, S, stream()));
 }
 
 void myers_sweep(const at::Tensor& q4, const at::Tensor& t4,
@@ -107,6 +125,7 @@ void myers_walk(const at::Tensor& planes, const at::Tensor& m,
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
   mod.def("nw_sweep", &nw_sweep);
   mod.def("rle_walk", &rle_walk);
+  mod.def("packed_walk", &packed_walk);
   mod.def("myers_sweep", &myers_sweep);
   mod.def("myers_walk", &myers_walk);
 }

@@ -4,7 +4,7 @@ Myers sweep and walk kernels. Port of racon_tpu/ops/align_stage_tpu.py.
 Overlap (query-slice, target-slice) pairs are bucketed by length into the
 canonical equal-cap tiers, aligned on the device with edit-distance
 semantics (ops/myers_kernel.align_walk_myers_padded: the "rows" payload at
-every tier), decoded by the shared native runtime, and cut at window
+every tier), decoded by the port's native runtime, and cut at window
 boundaries natively. Items beyond the last tier or escaping the band are
 aligned by the host C++ aligner, as in the reference.
 
@@ -20,7 +20,7 @@ from collections import deque
 import numpy as np
 import torch
 
-from racon_tpu.native import bindings
+from ..native import bindings
 
 from .consensus_stage import chunk_size, chunk_spans
 from .geometry import PAD_CODE, encode, rows_payload_width

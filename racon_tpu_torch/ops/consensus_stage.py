@@ -1,14 +1,16 @@
 """Consensus stage on a CUDA device: iterative star-POA around the scored
-sweep and RLE walk kernels. Port of racon_tpu/ops/consensus_stage_tpu.py.
+sweep and the RLE / packed2 walk kernels. Port of
+racon_tpu/ops/consensus_stage_tpu.py.
 
 Per refinement pass every (window, layer) item is aligned to its window's
 current backbone on the device (ops/nw_kernel.align_walk_padded: the
-scored banded sweep plus the RLE walk); the shared native runtime decodes
-the event streams and merges them into the per-window graphs
-(bindings.poa_round_batch), giving the final consensus or the expanded
-backbone of the next pass. Items beyond the tiers, in a tier wider than
-the sweep kernel takes (W > 1024), or escaping the band are realigned on
-the host thread pool, as in the reference.
+scored banded sweep plus the RLE walk, or the packed2 walk at the
+W = 2048 tier); the port's native runtime decodes the streams and merges
+them into the per-window graphs (bindings.poa_round_batch), giving the
+final consensus or the expanded backbone of the next pass. Items beyond
+the tiers or escaping the band are realigned on the host thread pool, as
+in the reference; a tier wider than the sweep kernel takes would be too
+(counted as wide_host_items; none of the canonical tiers is).
 
 Left out of the port, each for a reason recorded in ROADMAP.md: the
 cheapest-path router `_route` and its tunnel calibrations (the stage always
@@ -26,10 +28,10 @@ from collections import defaultdict
 import numpy as np
 import torch
 
-from racon_tpu.native import bindings
-from racon_tpu.utils.phred import PHRED_OFFSET
+from ..native import bindings
+from ..utils.phred import PHRED_OFFSET
 
-from .geometry import PAD_CODE, encode, rle_events, sweep_fits
+from .geometry import PAD_CODE, encode, rle_events, sweep_fits, walk_steps
 from .nw_kernel import align_walk_padded
 
 _MOVES_BUDGET = 1 << 30  # device bytes of one chunk's move words
@@ -115,11 +117,14 @@ class TorchConsensusStage:
         self.cfg = cfg
         self.device = torch.device(device)
         self.prof = defaultdict(float)
+        # per refinement pass: items per (cap, band) tier, -1 = host
+        self.tier_items: list[dict] = []
 
     def consensus_windows(self, windows, cfg, logger):
-        from racon_tpu.core.windows import WINDOW_TYPE_TGS
+        from ..core.windows import WINDOW_TYPE_TGS
 
         self.prof = defaultdict(float)
+        self.tier_items = []
         n_win = windows.num_windows
         tgs = windows.window_type == WINDOW_TYPE_TGS
 
@@ -200,6 +205,9 @@ class TorchConsensusStage:
 
         tiers = [t for t in _TIERS if t[0] <= max_expand] or [_TIERS[0]]
         tier_id = bucket_tiers(mlen, nlen, tiers)
+        ids, counts = np.unique(tier_id, return_counts=True)
+        self.tier_items.append({(tiers[t] if t >= 0 else -1): int(c)
+                                for t, c in zip(ids, counts)})
         host_parts = [np.flatnonzero(tier_id < 0)]
         pending = []
         for ti, (cap, w_band) in enumerate(tiers):
@@ -221,12 +229,12 @@ class TorchConsensusStage:
                                             cap, PAD_CODE, thr)
                 dcb = bindings.pack_rows_bits(del8, t_start[sel], t_end[sel],
                                               cap, thr)
-                payload, _, _ = align_walk_padded(
+                payload, _, fmt = align_walk_padded(
                     q4, t4, dcb, mlen[sel].astype(np.int32),
                     nlen[sel].astype(np.int32), m_cap=cap, n_cap=cap,
                     w_band=w_band, match=cfg.match, mismatch=cfg.mismatch,
                     gap=cfg.gap, device=self.device)
-                pending.append((sel, cap, w_band, payload))
+                pending.append((sel, cap, w_band, fmt, payload))
                 self.prof["device_items"] += len(sel)
         return dict(st=st, state=state, max_expand=max_expand, sb=sb,
                     t_start=t_start, mlen=mlen, nlen=nlen,
@@ -252,16 +260,21 @@ class TorchConsensusStage:
         np.cumsum(mlen + nlen + 2, out=ops_off2[1:])
         ops_blob = np.empty((int(ops_off2[-1]), 2), np.int32)
         cnt = np.zeros(n_items, np.int64)
-        for sel, cap, w_band, payload in ctx["pending"]:
+        for sel, cap, w_band, fmt, payload in ctx["pending"]:
             t0 = time.perf_counter()
             payload = payload.cpu().numpy()
             t1 = time.perf_counter()
             self.prof["fetch_s"] += t1 - t0
             escaped = payload[:, -1] != 0
             codes = np.ascontiguousarray(payload[:, :-1])
-            _, _, counts = bindings.opstream_rle_to_ops_batch(
-                codes, rle_events(cap, cap, w_band), mlen[sel], nlen[sel],
-                thr, dst=ops_blob, dst_off=ops_off2[:-1][sel])
+            if fmt == "rle":
+                decode = bindings.opstream_rle_to_ops_batch
+                budget = rle_events(cap, cap, w_band)
+            else:
+                decode = bindings.opstream_packed_to_ops_batch
+                budget = walk_steps(cap, cap, w_band)
+            _, _, counts = decode(codes, budget, mlen[sel], nlen[sel], thr,
+                                  dst=ops_blob, dst_off=ops_off2[:-1][sel])
             host_parts.append(sel[escaped])  # band escape -> host realign
             cnt[sel[~escaped]] = counts[~escaped]
             self.prof["escaped_items"] += int(escaped.sum())

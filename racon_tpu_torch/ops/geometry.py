@@ -3,8 +3,8 @@ and stages: jax-free ports of the numpy helpers that live inside
 racon_tpu/ops/nw_kernel.py and racon_tpu/ops/myers_kernel.py.
 
 Every value here must equal the reference's, because payload formats and
-budgets are decoded by the shared native runtime
-(racon_tpu/native/src/align.cpp) and compared byte for byte in the tests.
+budgets are decoded by the port's copy of the native runtime
+(racon_tpu_torch/native/src/align.cpp) and compared byte for byte in the tests.
 """
 
 from __future__ import annotations
@@ -21,6 +21,10 @@ NW_CODES = 6              # ACGTN + PAD planes of the Myers Peq mask
 RLE_SKIP = 0
 RLE_UP = 201
 RLE_LEFT = 202
+
+# packed2 step codes (nw_kernel.py:1798, 1807-1808): 0 diagonal, 1 up,
+# 2 left, 3 skip; four per byte
+OP_STREAM_SKIP = 3
 
 # rows-payload record ops (nw_kernel.py:1887-1888)
 REC_DIAG = 1
@@ -83,13 +87,20 @@ def peq_words(n_cap: int, w_band: int) -> int:
     return (n_cap + 2 * guard_bits(w_band)) // 32
 
 
+def sweep_lanes(w_band: int) -> int:
+    """Band lanes each thread of the sweep kernel owns: one up to W = 1024,
+    two above, so a block never exceeds 1024 threads."""
+    return 1 if w_band <= 1024 else 2
+
+
 def sweep_fits(m_cap: int, n_cap: int, w_band: int) -> bool:
-    """Shapes the scored sweep kernel takes: one thread per band lane, so
-    W <= 1024 and a multiple of 32, and the t8 regime dlo <= 0. Wider
-    tiers (the reference's lane-major kernel, nw_kernel.py:186) are
-    aligned on the host."""
-    return (w_band % 32 == 0 and w_band <= 1024 and m_cap % 16 == 0
-            and n_cap % 32 == 0 and band_dlo(m_cap, n_cap, w_band) <= 0)
+    """Shapes the scored sweep kernel takes: W a multiple of 32 up to 1024
+    (one lane per thread) or of 64 up to 2048 (two lanes per thread, the
+    reference's lane-major tier, nw_kernel.py:186), and the t8 regime
+    dlo <= 0. Wider bands are refused."""
+    return (w_band % (32 * sweep_lanes(w_band)) == 0 and w_band <= 2048
+            and m_cap % 16 == 0 and n_cap % 32 == 0
+            and band_dlo(m_cap, n_cap, w_band) <= 0)
 
 
 def myers_fits(m_cap: int, n_cap: int, w_band: int) -> bool:

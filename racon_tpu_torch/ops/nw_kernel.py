@@ -1,9 +1,11 @@
-"""Scored banded-NW sweep and RLE traceback walk: the consensus stage's
-device core (port of the main path of racon_tpu/ops/nw_kernel.py).
+"""Scored banded-NW sweep and the RLE and packed2 traceback walks: the
+consensus stage's device core (port of the main path of
+racon_tpu/ops/nw_kernel.py).
 
 Each function takes its tensors on one device. On a CUDA tensor it
 launches the hand-written kernel (kernels/csrc/nw_sweep.cu,
-kernels/csrc/rle_walk.cu) and counts the launch; on a CPU tensor it runs
+kernels/csrc/rle_walk.cu, kernels/csrc/packed_walk.cu) and counts the
+launch; on a CPU tensor it runs
 the plain PyTorch version beside it, which is the readable specification
 and what the CPU tests hold against the JAX package. Any other device
 raises.
@@ -17,6 +19,9 @@ Layouts (see ops/batch.py for the packed inputs):
   score (B,) int32                 H at the end lane
   payload (B, E + 1) uint8         RLE events then the escape flag,
                                    E = rle_events(m_cap, n_cap, W)
+  payload (B, S // 4 + 1) uint8    packed2: 2-bit step codes, 4 per byte,
+                                   then the escape flag,
+                                   S = walk_steps(m_cap, n_cap, W)
 """
 
 from __future__ import annotations
@@ -25,9 +30,9 @@ import torch
 
 from ..kernels import LAUNCHES
 from .batch import to_device, unpack_bits, unpack_codes
-from .geometry import (NEG, PAD_CODE, PACK, RLE_LEFT, RLE_SKIP, RLE_UP,
-                       SCAN_FILL, band_dlo, rle_events, scan_span,
-                       sweep_fits)
+from .geometry import (NEG, OP_STREAM_SKIP, PAD_CODE, PACK, RLE_LEFT,
+                       RLE_SKIP, RLE_UP, SCAN_FILL, band_dlo, rle_events,
+                       scan_span, sweep_fits, sweep_lanes, walk_steps)
 
 
 def _device_kind(t: torch.Tensor) -> str:
@@ -47,7 +52,9 @@ def _as_int32_bits(x: torch.Tensor) -> torch.Tensor:
 def nw_sweep(q4, t4, dcb, *, m_cap, n_cap, w_band, match, mismatch, gap):
     """q4 (B, m_cap//2), t4 (B, n_cap//2), dcb (B, n_cap//8) uint8 ->
     (moves (B, m_cap//16, W) int32, score (B,) int32). Replaces the TPU
-    kernels nw_band_batch_t8 / nw_band_batch_t8big."""
+    kernels nw_band_batch_t8 / nw_band_batch_t8big (W <= 1024, launches
+    counted as "nw_sweep") and nw_band_batch (W = 2048, two band lanes
+    per thread, counted as "nw_sweep_wide")."""
     if not sweep_fits(m_cap, n_cap, w_band):
         raise ValueError(f"sweep shape ({m_cap}, {n_cap}, {w_band}) "
                          "unsupported")
@@ -63,7 +70,7 @@ def nw_sweep(q4, t4, dcb, *, m_cap, n_cap, w_band, match, mismatch, gap):
     score = torch.empty((B,), dtype=torch.int32, device=q4.device)
     kernels().nw_sweep(q4, t4, dcb, moves, score, m_cap, n_cap, w_band,
                        match, mismatch, gap, scan_span(w_band))
-    LAUNCHES["nw_sweep"] += 1
+    LAUNCHES["nw_sweep" if sweep_lanes(w_band) == 1 else "nw_sweep_wide"] += 1
     return moves, score
 
 
@@ -212,22 +219,101 @@ def rle_walk_plain(moves, m, n, *, m_cap, n_cap, w_band, max_events=None):
     return torch.cat([events, esc[:, None].to(torch.uint8)], 1)
 
 
+# ----------------------------------------------------------- packed2 walk
+
+
+def packed_walk(moves, m, n, *, m_cap, n_cap, w_band, max_steps=None):
+    """moves from nw_sweep, m/n (B,) int32 -> payload (B, S // 4 + 1)
+    uint8: the 2-bit step stream emitted backward from (m, n), four steps
+    per byte and padded with OP_STREAM_SKIP, then the escape flag; byte
+    for byte walk_moves_device(packed=True) (the TPU's jnp walk it
+    replaces). S = max_steps, by default walk_steps(m_cap, n_cap,
+    w_band); a walk that needs more is flagged escaped."""
+    S = max_steps or walk_steps(m_cap, n_cap, w_band)
+    if _device_kind(moves) == "cpu":
+        return packed_walk_plain(moves, m, n, m_cap=m_cap, n_cap=n_cap,
+                                 w_band=w_band, max_steps=S)
+    from ..kernels.build import kernels
+
+    payload = torch.empty((moves.shape[0], S // 4 + 1), dtype=torch.uint8,
+                          device=moves.device)
+    kernels().packed_walk(moves, m, n, payload, m_cap, n_cap, w_band, S)
+    LAUNCHES["packed_walk"] += 1
+    return payload
+
+
+def packed_walk_plain(moves, m, n, *, m_cap, n_cap, w_band, max_steps=None):
+    """Plain PyTorch version of packed_walk on CPU tensors: the reference's
+    batch-synchronous loop, every item stepping once per iteration."""
+    if moves.device.type != "cpu":
+        raise ValueError("packed_walk_plain takes CPU tensors")
+    B = moves.shape[0]
+    W = w_band
+    S = max_steps or walk_steps(m_cap, n_cap, W)
+    if S % 4:
+        raise ValueError(f"step budget {S} is not a multiple of 4")
+    dlo = band_dlo(m_cap, n_cap, W)
+    mflat = (moves.to(torch.int64) & 0xFFFFFFFF).reshape(B, -1)
+    m = m.to(torch.int64)
+    n = n.to(torch.int64)
+    i = m.clone()
+    j = n.clone()
+    esc = torch.zeros(B, dtype=torch.bool)
+    codes = torch.full((B, S), OP_STREAM_SKIP, dtype=torch.uint8)
+    s = 0
+    while s < S and bool((((i != 0) | (j != 0)) & ~esc).any()):
+        k = j - i - dlo
+        at_origin = (i == 0) & (j == 0)
+        row = torch.clamp(i - 1, min=0)
+        widx = (row // PACK) * W + torch.clamp(k, 0, W - 1)
+        word = torch.gather(mflat, 1, widx[:, None])[:, 0]
+        mv = (word >> (2 * (row % PACK))) & 3
+        mv = torch.where(i == 0, 2, mv)              # row 0: all deletions
+        mv = torch.where((j == 0) & (i > 0), 1, mv)  # column 0: insertions
+        inband = (k >= 0) & (k < W)
+        esc = esc | (~at_origin & (i > 0) & (j > 0)
+                     & (~inband | (mv == 3)))
+        mv = torch.where(esc | at_origin, OP_STREAM_SKIP, mv)
+        real = torch.where(mv == 0, (i <= m) & (j <= n),
+                           torch.where(mv == 1, i <= m, j <= n))
+        codes[:, s] = torch.where((mv == OP_STREAM_SKIP) | ~real,
+                                  OP_STREAM_SKIP, mv).to(torch.uint8)
+        i = i - ((mv == 0) | (mv == 1)).long()
+        j = j - ((mv == 0) | (mv == 2)).long()
+        s += 1
+    esc = esc | (i != 0) | (j != 0)  # truncated walk -> host realign
+    shifts = 2 * torch.arange(4, dtype=torch.int32)
+    packed = (codes.reshape(B, S // 4, 4).to(torch.int32) << shifts).sum(-1)
+    return torch.cat([packed.to(torch.uint8), esc[:, None].to(torch.uint8)],
+                     1)
+
+
 # ------------------------------------------------------------ fused call
+
+
+def walk_fmt(w_band: int) -> str:
+    """Payload format of a consensus tier (nw_kernel.py:2129-2160 on a real
+    chip): "rle" where the reference's transposed sweeps run (W <= 1024),
+    "packed2" at the lane-major tier (W = 2048)."""
+    return "rle" if sweep_lanes(w_band) == 1 else "packed2"
 
 
 def align_walk_padded(q4, t4, dcb, m, n, *, m_cap, n_cap, w_band, match,
                       mismatch, gap, device):
     """The consensus stage's fused dispatch: the packed numpy batch goes to
-    `device`, through the sweep and the RLE walk, and comes back as
-    (payload (B, rle_events + 1) uint8, score (B,) int32, "rle") on that
-    device, in the reference's payload format (decode with
-    bindings.opstream_rle_to_ops_batch). Unlike the reference there is no
-    padding of the batch: a kernel launch takes any B."""
+    `device`, through the sweep and a walk, and comes back as (payload,
+    score (B,) int32, fmt) on that device, in the reference's payload
+    format: fmt "rle" (decode with bindings.opstream_rle_to_ops_batch
+    against rle_events) or "packed2" (bindings.opstream_packed_to_ops_batch
+    against walk_steps), as walk_fmt picks. Unlike the reference there is
+    no padding of the batch: a kernel launch takes any B."""
     batch = to_device(q4, t4, dcb, m, n, m_cap=m_cap, n_cap=n_cap,
                       device=device)
     moves, score = nw_sweep(batch.q4, batch.t4, batch.dcb, m_cap=m_cap,
                             n_cap=n_cap, w_band=w_band, match=match,
                             mismatch=mismatch, gap=gap)
-    payload = rle_walk(moves, batch.m, batch.n, m_cap=m_cap, n_cap=n_cap,
-                       w_band=w_band)
-    return payload, score, "rle"
+    fmt = walk_fmt(w_band)
+    walk = rle_walk if fmt == "rle" else packed_walk
+    payload = walk(moves, batch.m, batch.n, m_cap=m_cap, n_cap=n_cap,
+                   w_band=w_band)
+    return payload, score, fmt

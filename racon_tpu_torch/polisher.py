@@ -1,50 +1,210 @@
-"""Polisher of the port: racon_tpu's orchestration (parse, align, window,
-consensus, stitch) with the stages of racon_tpu_torch.backends.
+"""Polisher of the port: racon's CLI contract (createPolisher -> initialize
+-> polish, src/polisher.cpp:55-548) around columnar data and the stages of
+racon_tpu_torch.backends. A copy of racon_tpu/polisher.py without its
+jax warm-up thread and its multi-host (dist) and prewarm branches.
 
-`initialize` is inherited unchanged. Its warm-up thread asks
-racon_tpu.backends for stages, which touches jax only under the "tpu" and
-"auto" backends; the port resolves the backend before the Polisher exists,
-so that thread only builds native or python stage objects.
-`_find_breaking_points` and `polish` are re-written without the multi-host
-(dist) and prewarm paths, which import jax.
+Stage map (reference -> here):
+  initialize targets/reads ingest + dedup   -> SequenceStore + name/id maps
+  overlap transmute + filtering             -> OverlapTable (vectorized)
+  find_overlap_breaking_points (edlib)      -> align stage of the backend
+  window construction + layer assignment    -> WindowSet (SoA)
+  polish (spoa POA per window)              -> consensus stage of the backend
 """
 
 from __future__ import annotations
 
+import os
+import sys
 from dataclasses import replace
 
 import numpy as np
 
-from racon_tpu import polisher as _base
-from racon_tpu.core.breakpoints import breaking_points_from_cigar
-from racon_tpu.core.windows import stitch
-from racon_tpu.models.polish_model import PolisherConfig, PolisherType
-
 from .backends import get_align_stage, get_consensus_stage, resolve_backend
+from .core.breakpoints import breaking_points_from_cigar
+from .core.overlaps import OverlapTable
+from .core.store import SequenceStore, merge_stores
+from .core.windows import (WINDOW_TYPE_NGS, WINDOW_TYPE_TGS, WindowSet,
+                           stitch)
+from .errors import RaconError
+from .io import open_overlap_parser, open_sequence_parser
+from .models.polish_model import PolisherConfig, PolisherType
+from .utils.logger import Logger
+
+kChunkSize = 1 << 30  # streaming parse unit (reference: src/polisher.cpp:26)
+
+
+def _chunk_bytes() -> int:
+    """Per call, so RACON_TPU_CHUNK_BYTES works whenever it is set (the
+    fastx path reads it the same way)."""
+    return int(os.environ.get("RACON_TPU_CHUNK_BYTES", kChunkSize))
 
 
 def create_polisher(sequences_path: str, overlaps_path: str, target_path: str,
                     config: PolisherConfig, device=None) -> "Polisher":
     """Validate the configuration and open the parsers (reference:
-    src/polisher.cpp:55-160). The backend is resolved here ("auto" ->
-    cuda or native). device=None puts the cuda backend on the current GPU;
-    device="cpu" runs the kernels' plain PyTorch versions (tests only)."""
+    src/polisher.cpp:55-160), then resolve the backend ("auto" -> cuda;
+    raises BackendUnavailable without a GPU). device=None puts the cuda
+    backend on the current GPU; device="cpu" runs the kernels' plain
+    PyTorch versions and is the tests' way to run the cuda backend without
+    a GPU."""
+    if not isinstance(config.type, PolisherType):
+        raise RaconError("[racon::createPolisher] error: invalid polisher "
+                         "type!")
+    if config.window_length == 0:
+        raise RaconError("[racon::createPolisher] error: invalid window "
+                         "length!")
+    sparser = open_sequence_parser(sequences_path)
+    oparser = open_overlap_parser(overlaps_path)
+    tparser = open_sequence_parser(target_path)
     if device is None or config.backend != "cuda":
         config = replace(config, backend=resolve_backend(config.backend))
-    base = _base.create_polisher(sequences_path, overlaps_path, target_path,
-                                 config)
-    return Polisher(base.sparser, base.oparser, base.tparser, config, device)
+    return Polisher(sparser, oparser, tparser, config, device)
 
 
-class Polisher(_base.Polisher):
+class Polisher:
     def __init__(self, sparser, oparser, tparser, config: PolisherConfig,
                  device=None):
-        super().__init__(sparser, oparser, tparser, config)
+        self.sparser = sparser
+        self.oparser = oparser
+        self.tparser = tparser
+        self.config = config
         self.device = device
+        self.logger = Logger()
+        self.sequences: SequenceStore | None = None
+        self.windows: WindowSet | None = None
+        self.targets_size = 0
+        self.targets_coverages: np.ndarray | None = None
         self.align_stage = None
         self.consensus_stage = None
+        self._initialized = False
 
-    def _find_breaking_points(self, overlaps) -> list[np.ndarray]:
+    # ------------------------------------------------------------------ #
+
+    def initialize(self) -> None:
+        if self._initialized:
+            sys.stderr.write("[racon::Polisher::initialize] warning: "
+                             "object already initialized!\n")
+            return
+        self._initialized = True
+        cfg = self.config
+        log = self.logger
+        log.log()
+
+        targets = self.tparser.parse_store()
+        targets_size = len(targets)
+        if targets_size == 0:
+            raise RaconError("[racon::Polisher::initialize] error: "
+                             "empty target sequences set!")
+        self.targets_size = targets_size
+
+        name_to_id: dict[bytes, int] = {}
+        id_to_id: dict[int, int] = {}
+        for i in range(targets_size):
+            name_to_id[targets.names[i] + b"t"] = i
+            id_to_id[i << 1 | 1] = i
+
+        log.log("[racon::Polisher::initialize] loaded target sequences")
+        log.log()
+
+        # reads; duplicates of targets (same name + equal data/quality length)
+        # share the target's record (reference: src/polisher.cpp:229-264)
+        reads = self.sparser.parse_store()
+        sequences_size = len(reads)
+        if sequences_size == 0:
+            raise RaconError("[racon::Polisher::initialize] error: "
+                             "empty sequences set!")
+        total_sequences_length = int(reads.data_off[-1])
+        rlen = reads.lengths()
+        rqlen = np.diff(reads.qual_off)
+        tqlen = np.diff(targets.qual_off)
+        keep = np.ones(sequences_size, dtype=bool)
+        dup_tid = np.full(sequences_size, -1, dtype=np.int64)
+        for i in range(sequences_size):
+            tid = name_to_id.get(reads.names[i] + b"t")
+            if tid is not None:
+                if (rlen[i] != targets.length(tid) or
+                        rqlen[i] != tqlen[tid]):
+                    raise RaconError(
+                        "[racon::Polisher::initialize] error: duplicate "
+                        "sequence %s with unequal data"
+                        % reads.names[i].decode())
+                keep[i] = False
+                dup_tid[i] = tid
+        kept_before = np.cumsum(keep) - keep
+        for i in range(sequences_size):
+            internal = (int(dup_tid[i]) if dup_tid[i] >= 0
+                        else targets_size + int(kept_before[i]))
+            name_to_id[reads.names[i] + b"q"] = internal
+            id_to_id[i << 1 | 0] = internal
+
+        sequences = merge_stores(targets, reads, keep)
+        self.sequences = sequences
+
+        window_type = (WINDOW_TYPE_NGS if total_sequences_length /
+                       sequences_size <= 1000 else WINDOW_TYPE_TGS)
+
+        log.log("[racon::Polisher::initialize] loaded sequences")
+        log.log()
+
+        # chunked streaming parse + in-stream filtering (reference:
+        # kChunkSize = 1 GiB, src/polisher.cpp:26,310-355): host memory is
+        # bounded by one chunk of text plus surviving records; the run that
+        # straddles a chunk boundary is carried to the next chunk before
+        # filtering, exactly like the reference's c/l bookkeeping
+        keep_longest = cfg.type == PolisherType.kC
+        kept: list[OverlapTable] = []
+        carry: OverlapTable | None = None
+
+        def _filter_into_kept(table: OverlapTable) -> None:
+            keep = table.filter_invalid(cfg.error_threshold,
+                                        keep_longest_per_query=keep_longest)
+            table.compact(keep)
+            if len(table):
+                kept.append(table)
+
+        for chunk in self.oparser.parse_chunks(_chunk_bytes()):
+            chunk.transmute(sequences, name_to_id, id_to_id)
+            work = OverlapTable.concat([carry, chunk]) if carry else chunk
+            head, carry = work.split_at(work.trailing_run_start())
+            _filter_into_kept(head)
+        if carry is not None:
+            _filter_into_kept(carry)
+        overlaps = OverlapTable.concat(kept) if kept else OverlapTable()
+        del kept
+        if len(overlaps) == 0:
+            raise RaconError("[racon::Polisher::initialize] error: "
+                             "empty overlap set!")
+
+        log.log("[racon::Polisher::initialize] loaded overlaps")
+        log.log()
+
+        # lazy reverse complements for reverse-strand queries
+        # (reference: src/polisher.cpp:337-347,369-378)
+        rev_ids = np.unique(overlaps.q_id[overlaps.strand])
+        sequences.prepare_reverse(rev_ids)
+
+        breaking_points = self._find_breaking_points(overlaps)
+
+        log.log()
+
+        windows = WindowSet(sequences, targets_size, cfg.window_length,
+                            window_type)
+        self.targets_coverages = np.zeros(targets_size, dtype=np.int64)
+        for i in range(len(overlaps)):
+            self.targets_coverages[overlaps.t_id[i]] += 1
+            windows.assign_overlap(breaking_points[i], int(overlaps.q_id[i]),
+                                   int(overlaps.t_id[i]),
+                                   bool(overlaps.strand[i]),
+                                   cfg.quality_threshold)
+        windows.freeze()
+        self.windows = windows
+
+        log.log("[racon::Polisher::initialize] transformed data into windows")
+
+    # ------------------------------------------------------------------ #
+
+    def _find_breaking_points(self, overlaps: OverlapTable
+                              ) -> list[np.ndarray]:
         """Align the overlaps without a CIGAR on the configured stage;
         SAM records that carry one are walked directly."""
         stage = get_align_stage(self.config, self.device)
@@ -69,6 +229,8 @@ class Polisher(_base.Polisher):
         self.logger.log("[racon::Polisher::initialize] aligned overlaps")
         return out
 
+    # ------------------------------------------------------------------ #
+
     def polish(self, drop_unpolished_sequences: bool
                ) -> list[tuple[bytes, bytes]]:
         cfg = self.config
@@ -82,3 +244,6 @@ class Polisher(_base.Polisher):
                      drop_unpolished_sequences)
         self.logger.log("[racon::Polisher::polish] generated consensus")
         return dst
+
+    def total(self) -> None:
+        self.logger.total("[racon::Polisher::] total =")

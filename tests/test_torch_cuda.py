@@ -70,6 +70,28 @@ def test_sweep_and_rle_walk_match_plain(gpu, cap, w):
     assert torch.equal(payload.cpu(), nk.rle_walk_plain(pm, c.m, c.n, **geo))
 
 
+@pytest.mark.parametrize("cap,w", [(256, 128), (10240, 2048)])
+def test_sweep_and_packed_walk_match_plain(gpu, cap, w):
+    """The packed2 path: at W = 2048 the sweep's two-lanes-per-thread
+    instantiation (counted as nw_sweep_wide), then the packed walk."""
+    q4, t4, dcb, m, n = _packed(cap + w + 1, 8, cap, w // 2 - 100)
+    geo = dict(m_cap=cap, n_cap=cap, w_band=w)
+    sc = dict(match=5, mismatch=-4, gap=-8)
+    g = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap, device=gpu)
+    c = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap, device="cpu")
+    sweep = "nw_sweep_wide" if w > 1024 else "nw_sweep"
+    before = dict(LAUNCHES)
+    moves, score = nk.nw_sweep(g.q4, g.t4, g.dcb, **geo, **sc)
+    payload = nk.packed_walk(moves, g.m, g.n, **geo)
+    torch.cuda.synchronize()
+    assert LAUNCHES[sweep] == before[sweep] + 1
+    assert LAUNCHES["packed_walk"] == before["packed_walk"] + 1
+    pm, ps = nk.nw_sweep_plain(c.q4, c.t4, c.dcb, **geo, **sc)
+    assert torch.equal(moves.cpu(), pm) and torch.equal(score.cpu(), ps)
+    assert torch.equal(payload.cpu(),
+                       nk.packed_walk_plain(pm, c.m, c.n, **geo))
+
+
 @pytest.mark.parametrize("cap,w", [(512, 64), (2560, 512), (10240, 4096)])
 def test_myers_sweep_and_walk_match_plain(gpu, cap, w):
     q4, t4, _, m, n = _packed(cap + w, 8, cap, w)
@@ -97,7 +119,7 @@ def test_kernels_refuse_wrong_inputs(gpu):
 
 
 def test_cuda_polish_matches_cpu(gpu, tmp_path):
-    from racon_tpu.models.polish_model import PolisherConfig
+    from racon_tpu_torch.models.polish_model import PolisherConfig
     from racon_tpu_torch.polisher import create_polisher
 
     rng = np.random.default_rng(7)

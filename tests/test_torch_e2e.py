@@ -21,10 +21,12 @@ import pytest
 import torch
 
 from racon_tpu import cli as jax_cli
-from racon_tpu.errors import RaconError
-from racon_tpu.models.polish_model import PolisherConfig
+from racon_tpu.errors import RaconError as JaxRaconError
+from racon_tpu.models.polish_model import PolisherConfig as JaxPolisherConfig
 from racon_tpu.polisher import create_polisher as jax_create_polisher
 from racon_tpu_torch import cli as torch_cli
+from racon_tpu_torch.errors import RaconError
+from racon_tpu_torch.models.polish_model import PolisherConfig
 from racon_tpu_torch.polisher import create_polisher
 
 torch.set_num_threads(2)
@@ -67,15 +69,15 @@ def _polish(create, paths, cfg, **kw):
 
 def test_fasta_matches_racon_tpu(tmp_path, monkeypatch):
     paths = _synthetic_case(tmp_path)
-    cfg = PolisherConfig(num_threads=2, trim=False)  # --no-trimming
-    got = _polish(create_polisher, paths,
-                  PolisherConfig(**{**cfg.__dict__, "backend": "cuda"}),
+    got = _polish(create_polisher, paths,  # --no-trimming
+                  PolisherConfig(backend="cuda", num_threads=2, trim=False),
                   device="cpu")
     # the reference's interpreted stages, at the real tier shapes
     monkeypatch.setenv("RACON_TPU_INTERPRET_FULLCAP", "1")
     monkeypatch.setenv("RACON_TPU_CONSENSUS_ROUTE", "device")
     want = _polish(jax_create_polisher, paths,
-                   PolisherConfig(**{**cfg.__dict__, "backend": "tpu"}))
+                   JaxPolisherConfig(backend="tpu", num_threads=2,
+                                     trim=False))
     assert got == want
     assert len(got) == 1 and len(got[0][1]) > 1400
 
@@ -84,16 +86,18 @@ def test_port_runs_with_jax_blocked(tmp_path):
     paths = _synthetic_case(tmp_path)
     code = textwrap.dedent(f"""
         import sys
-        sys.modules["jax"] = None  # any import of jax now fails
+        # any import of jax or of the JAX package now fails
+        sys.modules["jax"] = sys.modules["racon_tpu"] = None
         import contextlib, io
-        from racon_tpu.models.polish_model import PolisherConfig
+        from racon_tpu_torch.models.polish_model import PolisherConfig
         from racon_tpu_torch.polisher import create_polisher
         cfg = PolisherConfig(backend="cuda", num_threads=2, trim=False)
         with contextlib.redirect_stderr(io.StringIO()):
             p = create_polisher(*{paths!r}, cfg, device="cpu")
             p.initialize()
             out = p.polish(True)
-        assert not [m for m in sys.modules if m.split(".")[0] == "jax"
+        assert not [m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "racon_tpu")
                     and sys.modules[m] is not None]
         sys.stdout.buffer.write(out[0][1])
     """)
@@ -185,13 +189,16 @@ def test_target_extension_error(tmp_path, main):
             "extension" % bad) in err
 
 
-@pytest.mark.parametrize("create", [jax_create_polisher, create_polisher],
-                         ids=["racon_tpu", "racon_tpu_torch"])
-def test_invalid_type_error(create):
-    with pytest.raises(RaconError, match=r"\[racon::createPolisher\] "
-                                         r"error: invalid polisher type!"):
+@pytest.mark.parametrize(
+    "create,config,error",
+    [(jax_create_polisher, JaxPolisherConfig, JaxRaconError),
+     (create_polisher, PolisherConfig, RaconError)],
+    ids=["racon_tpu", "racon_tpu_torch"])
+def test_invalid_type_error(create, config, error):
+    with pytest.raises(error, match=r"\[racon::createPolisher\] "
+                                    r"error: invalid polisher type!"):
         create("a.fasta", "b.paf", "c.fasta",
-               PolisherConfig(type=3, backend="native"))
+               config(type=3, backend="native"))
 
 
 @ENTRY

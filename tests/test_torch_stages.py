@@ -18,6 +18,8 @@ from racon_tpu.models.polish_model import PolisherConfig
 from racon_tpu.ops.consensus_stage_tpu import TpuConsensusStage
 from racon_tpu.polisher import create_polisher as jax_create_polisher
 from racon_tpu.utils.logger import Logger
+from racon_tpu_torch.models.polish_model import \
+    PolisherConfig as PortPolisherConfig
 from racon_tpu_torch.ops.consensus_stage import (TorchConsensusStage,
                                                  bucket_tiers, chunk_spans)
 from racon_tpu_torch.polisher import create_polisher
@@ -102,8 +104,8 @@ def test_align_stage_matches_jax_and_native(tmp_path):
     cfg = PolisherConfig(num_threads=2, window_length=100)
     polishers = []
     with contextlib.redirect_stderr(io.StringIO()):
-        port = create_polisher(*paths, PolisherConfig(
-            **{**cfg.__dict__, "backend": "cuda"}), device="cpu")
+        port = create_polisher(*paths, PortPolisherConfig(
+            num_threads=2, window_length=100, backend="cuda"), device="cpu")
         port.initialize()
         polishers.append(port)
         for backend in ("tpu", "native"):
