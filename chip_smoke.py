@@ -4,16 +4,25 @@
     python3 chip_smoke.py [--genome-mb 4.6] [--wide-genome-mb 1.0]
 
 Phases (each must pass, or the script exits non-zero):
-  1. the card's name and power limit, the torch/CUDA versions, and the
-     build of the kernels from racon_tpu_torch/kernels/csrc;
+  1. the card's name and power limit, the torch/CUDA versions, the build
+     of the kernels from racon_tpu_torch/kernels/csrc, and ptxas's
+     register and spill counts of the sweep and the rows walk (a separate
+     `nvcc -Xptxas -v` compile of their sources, run beside the build);
   2. each kernel against its plain PyTorch version (on the host CPU) at the
-     main paths' shapes, byte for byte, with CUDA-event times: the sweep
-     and RLE walk at (640,128) and (5120,1024), the Myers sweep and walk at
-     (2560,512) and (10240,1024), the wide sweep and packed2 walk at
-     (10240,2048);
+     main paths' shapes, byte for byte, with CUDA-event times: the sweep,
+     RLE walk and rows walk at (640,128) and (5120,1024) (with the two
+     walks' payload bytes and host decode times), the Myers sweep and walk
+     at (2560,512) and (10240,1024), the wide sweep and packed2 walk at
+     (10240,2048) and (10240,4096), the times of one chunk at
+     (10240,2048) and (40960,4096), and the align stage's scored route at
+     (10240,1024): sweep, RLE and rows walk at 0/-1/-1 with unit
+     deletion costs;
   3. the consensus stage on the bench workload (testing.synth
      build_workload, 2048 windows of 500 bp, 12% error, match 5 /
-     mismatch -4 / gap -8): edit distance to the truth must be exactly 91;
+     mismatch -4 / gap -8), four times: the default RLE walk, then
+     RACON_TPU_WALK=rows twice, then the default again; edit distance to
+     the truth must be exactly 91 each time, and the rows runs must
+     launch the rows walk and not the RLE walk;
   4. the default polish path end to end (the CLI's arguments `--backend
      cuda -m 5 -x -4 -g -8 -t <cores>`, then create_polisher ->
      initialize -> polish) on testing.synth.make_dataset (4.6 Mb, 20x 8 kb
@@ -26,9 +35,18 @@ Phases (each must pass, or the script exits non-zero):
      host for want of a band (wide_host_items 0), and the polished contig
      must be closer to the truth than the draft. 1 Mb, not 4.6: at 4.6 Mb
      this phase alone takes about 460 s, most of it the host realigning
-     band escapes, and the whole script then passes 10 minutes.
-Prints one JSON line of per-kernel results, the card's name and power
-limit, then the result line. Without a CUDA device it exits 2 and prints
+     band escapes, and the whole script then passes 10 minutes;
+  6. the scored align route: create_polisher -> initialize on the
+     datasets of phases 4 and 5, each twice, by default (Myers) and under
+     RACON_TPU_MYERS=0 RACON_TPU_WALK=rows; the scored runs must launch
+     the sweep and the rows walk (phase 4's 8 kb overlaps, W <= 1024
+     tiers) and the wide sweep and the packed walk (phase 5's drifting
+     20 kb overlaps, W = 4096); no overlap may go to the host in either
+     run, and every overlap's breaking points must equal the Myers run's.
+Prints one JSON line of per-kernel results (the contract's keys, then
+every shape phase 2 measured under `shapes` and each run's launches
+under `launches_by_path`), the card's name and power limit, then the
+result line. Without a CUDA device it exits 2 and prints
 no result. The port imports neither jax nor racon_tpu; this script makes
 sure of it by blocking both imports.
 """
@@ -62,7 +80,10 @@ KERNELS = {  # name -> (source, TPU kernel or jnp routine it replaces)
                       "racon_tpu/ops/nw_kernel.py:186"),
     "packed_walk": (CSRC + "packed_walk.cu",
                     "racon_tpu/ops/nw_kernel.py:1803"),
+    "rows_walk": (CSRC + "rows_walk.cu", "racon_tpu/ops/nw_kernel.py:1990"),
 }
+# sources whose ptxas report (registers, spills) phase 1 prints
+PTXAS_SOURCES = ("nw_sweep.cu", "rows_walk.cu")
 
 # Least-time model of one H100 SXM: 3.35 TB/s of HBM (NVIDIA data sheet)
 # and 16.73 Tops/s of INT32 (132 SMs x 64 INT32 lanes x 1.98 GHz boost:
@@ -85,11 +106,66 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+def record_launches(results, path, counts):
+    """Each kernel's launches in one main-path run (counts reset just
+    before it), under the run's name in its `launches_by_path`."""
+    for k, c in counts.items():
+        if c:
+            results[k]["launches_by_path"][path] = c
+
+
 def bound(nbytes: float, nops: float) -> tuple[float, str]:
     """(least ms the card could take, what bounds it)."""
     tb = 1e3 * nbytes / HBM_BYTES_PER_S
     to = 1e3 * nops / INT32_OPS_PER_S
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def start_ptxas(tmp):
+    """One `nvcc -Xptxas -v` compile per source of PTXAS_SOURCES, all
+    started at once (the kernels' own build does not keep ptxas's
+    report). Returns {source: process}."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from racon_tpu_torch.kernels.build import ARCH_FLAGS, CSRC as csrc
+
+    nvcc = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "nvcc")
+    return {src: subprocess.Popen(
+        [nvcc, *ARCH_FLAGS, "-std=c++17", "-O3", "-Xptxas", "-v", "-c",
+         "-o", os.path.join(tmp, src + ".o"), os.path.join(csrc, src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src in PTXAS_SOURCES}
+
+
+def ptxas_report(procs):
+    """Registers, stack frame and spill bytes per kernel, from the output
+    of start_ptxas's compiles."""
+    import re
+
+    for src, proc in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode:
+            raise SmokeFailure(f"nvcc -Xptxas -v {src} failed:\n{out}")
+        name = None
+        for line in out.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:
+                # mangled: <length><name>[ILi<lanes>EE]...
+                k = re.search(r"\d+([a-z_]+_kernel)(?:ILi(\d+)EE)?",
+                              m.group(1))
+                name = k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
+                continue
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+            if m and name:
+                frame = m.groups()
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if m and name:
+                log(f"[ptxas] {src} {name}: {m.group(1)} registers, "
+                    f"{frame[0]} bytes stack frame, {frame[1]} bytes spill "
+                    f"stores, {frame[2]} bytes spill loads")
+                name = None
 
 
 def make_items(rng, B, cap, w_band, gap, drift=None):
@@ -196,73 +272,201 @@ def _walk_bound(B, cap, W, width, steps):
     return bound(nbytes, steps * OPS_WALK_STEP)
 
 
-def phase_kernels(results):
+def _rows_bound(payload, m, n, cap, W):
+    """(rows walked, least ms, what bounds it) of the rows walk on this
+    payload. Bytes: m and n, the payload, and each distinct move word
+    (16 rows of one lane) the walk's path needs, traced from the plain
+    walk's records: per row the lanes from the current one down to the
+    deletion run's exit (the lane of column 0 is UP without a read; an
+    escaping row, the word it stands on). 12 operations per row walked
+    (counted as the Myers walk's)."""
+    import numpy as np
+
+    from racon_tpu_torch.ops.geometry import REC_UP, band_dlo
+
+    p = payload.numpy()
+    B = p.shape[0]
+    dlo = band_dlo(cap, cap, W)
+    m = np.asarray(m, np.int64)
+    top = np.minimum(m, cap)
+    k = np.asarray(n, np.int64) - m - dlo
+    alive = np.ones(B, bool)
+    per_item = (cap // 16) * W
+    words, rows = [], 0
+    for i in range(int(top.max(initial=0)), 0, -1):
+        act = alive & (top >= i)
+        rec = p[:, i - 1].astype(np.int64)
+        base = (i - 1) // 16 * W
+        esc = act & (rec == 0)
+        alive &= ~esc
+        e = np.flatnonzero(esc & (k >= 0) & (k < W))
+        words.append(e * per_item + base + k[e])
+        b = np.flatnonzero(act & (rec != 0))
+        rows += int(act.sum())
+        kk, left = k[b], rec[b] >> 2
+        cnt = left + 1 - (kk - left == -(i + dlo))
+        first = np.repeat(np.cumsum(cnt) - cnt, cnt)
+        lanes = np.repeat(kk, cnt) - (np.arange(int(cnt.sum())) - first)
+        words.append(np.repeat(b, cnt) * per_item + base + lanes)
+        k[b] = kk - left + ((rec[b] & 3) == REC_UP)
+    nwords = np.unique(np.concatenate(words)).size if words else 0
+    return (rows, *bound(4 * nwords + B * (8 + cap + 2),
+                         rows * OPS_WALK_STEP))
+
+
+def _decode_ms(fmt, payload, cap, W, m, n, threads):
+    """Host ms of the port's native decoder on one walk payload (all
+    items, escaped ones included, as the stages decode): the best of
+    three calls."""
+    import numpy as np
+
+    from racon_tpu_torch.ops.nw_kernel import payload_decoder
+
+    m = np.asarray(m, np.int64)
+    n = np.asarray(n, np.int64)
+    best = float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        decode, codes, budget = payload_decoder(fmt, payload, cap, W)
+        decode(codes, budget, m, n, threads)
+        best = min(best, time.perf_counter() - t0)
+    return 1e3 * best
+
+
+def phase_kernels(results, threads):
     """Phase 2: each kernel vs its plain version at main-path shapes."""
     import numpy as np
 
     from racon_tpu_torch.ops import myers_kernel as mk
     from racon_tpu_torch.ops import nw_kernel as nk
     from racon_tpu_torch.ops.batch import to_device
+    from racon_tpu_torch.ops.consensus_stage import chunk_size
 
+    from racon_tpu_torch.native import loader
+
+    t0 = time.perf_counter()
+    if loader.get() is None:
+        raise SmokeFailure("the native runtime did not build")
+    log(f"[build] native runtime built and loaded in "
+        f"{time.perf_counter() - t0:.1f} s")
     rng = np.random.default_rng(2024)
-    sc = dict(match=5, mismatch=-4, gap=-8)
-    for cap, W, B, drift, sweep_name, walk_name, walk in (
-            (640, 128, 4096, None, "nw_sweep", "rle_walk", nk.rle_walk),
-            (5120, 1024, 8, None, "nw_sweep", "rle_walk", nk.rle_walk),
-            (10240, 2048, 16, 700, "nw_sweep_wide", "packed_walk",
-             nk.packed_walk)):
+    consensus = dict(match=5, mismatch=-4, gap=-8)
+    align = dict(match=0, mismatch=-1, gap=-1)
+    walks = {"rle": ("rle_walk", nk.rle_walk, nk.rle_walk_plain),
+             "rows": ("rows_walk", nk.rows_walk, nk.rows_walk_plain),
+             "packed2": ("packed_walk", nk.packed_walk,
+                         nk.packed_walk_plain)}
+
+    def shape(name, cap, W, B, sc, **numbers):
+        results[name]["shapes"].append(dict(
+            shape=[cap, W, B], scores="align" if sc is align else "consensus",
+            **numbers))
+
+    def scored(cap, W, B, drift, fmts, rng, record, sc):
+        """Sweep and walks at one shape against their plain versions, with
+        the consensus stage's scores and deletion columns or the align
+        stage's (0/-1/-1, unit deletion costs everywhere)."""
         geo = dict(m_cap=cap, n_cap=cap, w_band=W)
-        fmt = nk.walk_fmt(W)
-        plain_walk = (nk.rle_walk_plain if fmt == "rle"
-                      else nk.packed_walk_plain)
-        q4, t4, dcb, m, n = make_items(rng, B, cap, W, -8, drift)
+        sweep_name = "nw_sweep" if W <= 1024 else "nw_sweep_wide"
+        q4, t4, dcb, m, n = make_items(rng, B, cap, W, sc["gap"], drift)
+        if sc is align:
+            dcb[:] = 0xFF
         gpu = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap,
                         device="cuda")
         cpu = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap,
                         device="cpu")
         moves, score = nk.nw_sweep(gpu.q4, gpu.t4, gpu.dcb, **geo, **sc)
-        payload = walk(moves, gpu.m, gpu.n, **geo)
         (pm, ps), sweep_plain = host_ms(lambda: nk.nw_sweep_plain(
             cpu.q4, cpu.t4, cpu.dcb, **geo, **sc))
-        pp, walk_plain = host_ms(lambda: plain_walk(pm, cpu.m, cpu.n, **geo))
         err = max(compare(f"{sweep_name} moves", moves, pm),
                   compare(f"{sweep_name} score", score, ps))
-        werr = compare(f"{walk_name} payload", payload, pp)
         sweep = cuda_ms(lambda: nk.nw_sweep(gpu.q4, gpu.t4, gpu.dcb, **geo,
                                             **sc))
-        wms = cuda_ms(lambda: walk(moves, gpu.m, gpu.n, **geo))
-        esc = int(pp[:, -1].sum())
-        steps = _walk_steps_taken(pp, fmt)
-        log(f"[kernels] {sweep_name}+{walk_name} ({cap},{W}) B={B}: "
-            f"byte-equal, {esc} escapes, {steps} walk steps; sweep "
-            f"{sweep:.3f} ms (plain CPU {sweep_plain:.1f} ms), walk "
-            f"{wms:.3f} ms (plain CPU {walk_plain:.1f} ms)")
-        if cap in (640, 10240):
-            bs, bys = _sweep_bound(B, cap, W)
-            bw, byw = _walk_bound(B, cap, W, pp.shape[1], steps)
-            results[sweep_name].update(
-                max_abs_err=err, ms=sweep, plain_ms=sweep_plain,
-                bound_ms=bs, bound_by=bys)
-            results[walk_name].update(
-                max_abs_err=werr, ms=wms, plain_ms=walk_plain,
-                bound_ms=bw, bound_by=byw)
-        if cap == 10240:
-            # the slice's launch size: one chunk of the 1 GiB move budget
-            from racon_tpu_torch.ops.consensus_stage import chunk_size
+        bs, bys = _sweep_bound(B, cap, W)
+        tag = "" if sc is consensus else " (align scores)"
+        log(f"[kernels] {sweep_name} ({cap},{W}) B={B}{tag}: byte-equal; "
+            f"{sweep:.3f} ms (plain CPU {sweep_plain:.1f} ms, bound "
+            f"{bs:.5f} ms)")
+        numbers = dict(max_abs_err=err, ms=sweep, plain_ms=sweep_plain,
+                       bound_ms=bs, bound_by=bys)
+        shape(sweep_name, cap, W, B, sc, **numbers)
+        if record:
+            results[sweep_name].update(numbers)
+        for fmt in fmts:
+            walk_name, walk, plain_walk = walks[fmt]
+            payload = walk(moves, gpu.m, gpu.n, **geo)
+            pp, walk_plain = host_ms(lambda: plain_walk(pm, cpu.m, cpu.n,
+                                                        **geo))
+            werr = compare(f"{walk_name} payload", payload, pp)
+            wms = cuda_ms(lambda: walk(moves, gpu.m, gpu.n, **geo))
+            esc = int(pp[:, -1].sum())
+            dec = _decode_ms(fmt, pp.numpy(), cap, W, m, n, threads)
+            if fmt == "rows":
+                steps, bw, byw = _rows_bound(pp, m, n, cap, W)
+            else:
+                steps = _walk_steps_taken(pp, fmt)
+                bw, byw = _walk_bound(B, cap, W, pp.shape[1], steps)
+            unit = "rows" if fmt == "rows" else "steps"
+            log(f"[kernels] {walk_name} ({cap},{W}) B={B}{tag}: "
+                f"byte-equal, {esc} escapes, {steps} {unit}; {wms:.3f} ms "
+                f"(plain CPU {walk_plain:.1f} ms, bound {bw:.5f} ms by "
+                f"{byw}); D2H payload {pp.numel()} bytes, host decode "
+                f"{dec:.3f} ms on {threads} threads")
+            numbers = dict(max_abs_err=werr, ms=wms, plain_ms=walk_plain,
+                           bound_ms=bw, bound_by=byw)
+            shape(walk_name, cap, W, B, sc, **numbers)
+            if record:
+                results[walk_name].update(numbers)
 
-            Bc = chunk_size(cap, W, 8192)
-            q4, t4, dcb, m, n = make_items(rng, Bc, cap, W, -8, drift)
-            big = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap,
-                            device="cuda")
-            mv_big, _ = nk.nw_sweep(big.q4, big.t4, big.dcb, **geo, **sc)
-            s_big = cuda_ms(lambda: nk.nw_sweep(big.q4, big.t4, big.dcb,
-                                                **geo, **sc), reps=3)
-            w_big = cuda_ms(lambda: walk(mv_big, big.m, big.n, **geo),
-                            reps=3)
-            bs, _ = _sweep_bound(Bc, cap, W)
-            log(f"[kernels] {sweep_name}+{walk_name} ({cap},{W}) B={Bc} "
-                f"(one chunk): sweep {s_big:.3f} ms (bound {bs:.3f} ms), "
-                f"walk {w_big:.3f} ms")
+    def chunk(cap, W, drift, rng, check_item):
+        """One launch at a stage's chunk size (the 1 GiB move budget);
+        with check_item, its first item against the plain versions."""
+        geo = dict(m_cap=cap, n_cap=cap, w_band=W)
+        sc = align if W == 4096 else consensus
+        Bc = chunk_size(cap, W, 1024 if W == 4096 else 8192)
+        q4, t4, dcb, m, n = make_items(rng, Bc, cap, W, sc["gap"], drift)
+        if W == 4096:
+            dcb[:] = 0xFF
+        big = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap,
+                        device="cuda")
+        mv_big, sc_big = nk.nw_sweep(big.q4, big.t4, big.dcb, **geo, **sc)
+        pay_big = nk.packed_walk(mv_big, big.m, big.n, **geo)
+        s_big = cuda_ms(lambda: nk.nw_sweep(big.q4, big.t4, big.dcb, **geo,
+                                            **sc), reps=3)
+        w_big = cuda_ms(lambda: nk.packed_walk(mv_big, big.m, big.n,
+                                               **geo), reps=3)
+        bs, bys = _sweep_bound(Bc, cap, W)
+        steps = _walk_steps_taken(pay_big.cpu(), "packed2")
+        bw, byw = _walk_bound(Bc, cap, W, pay_big.shape[1], steps)
+        checked = ""
+        err = werr = sweep_plain = None  # the plain versions, item 0 only
+        if check_item:
+            one = to_device(q4[:1], t4[:1], dcb[:1], m[:1], n[:1], m_cap=cap,
+                            n_cap=cap, device="cpu")
+            (pm, ps), sweep_plain = host_ms(lambda: nk.nw_sweep_plain(
+                one.q4, one.t4, one.dcb, **geo, **sc))
+            err = max(
+                compare("nw_sweep_wide moves (chunk item 0)", mv_big[:1],
+                        pm),
+                compare("nw_sweep_wide score (chunk item 0)", sc_big[:1],
+                        ps))
+            werr = compare("packed_walk payload (chunk item 0)",
+                           pay_big[:1],
+                           nk.packed_walk_plain(pm, one.m, one.n, **geo))
+            checked = (f"; item 0 byte-equal to the plain versions (plain "
+                       f"CPU sweep {sweep_plain:.1f} ms for that one item)")
+        log(f"[kernels] nw_sweep_wide+packed_walk ({cap},{W}) B={Bc} (one "
+            f"chunk): sweep {s_big:.3f} ms (bound {bs:.3f} ms), walk "
+            f"{w_big:.3f} ms (bound {bw:.5f} ms, {steps} steps){checked}")
+        shape("nw_sweep_wide", cap, W, Bc, sc, max_abs_err=err, ms=s_big,
+              plain_ms_item0=sweep_plain, bound_ms=bs, bound_by=bys)
+        shape("packed_walk", cap, W, Bc, sc, max_abs_err=werr, ms=w_big,
+              bound_ms=bw, bound_by=byw)
+
+    scored(640, 128, 4096, None, ("rle", "rows"), rng, True, consensus)
+    scored(5120, 1024, 8, None, ("rle", "rows"), rng, False, consensus)
+    scored(10240, 2048, 16, 700, ("packed2",), rng, True, consensus)
+    chunk(10240, 2048, 700, rng, False)
     for cap, W, B in ((2560, 512, 1024), (10240, 1024, 8)):
         geo = dict(m_cap=cap, n_cap=cap, w_band=W)
         q4, t4, _, m, n = make_items(rng, B, cap, W, -1)
@@ -284,23 +488,33 @@ def phase_kernels(results):
         log(f"[kernels] myers ({cap},{W}) B={B}: byte-equal, {esc} escapes; "
             f"sweep {sweep:.3f} ms (plain CPU {sweep_plain:.1f} ms), walk "
             f"{wms:.3f} ms (plain CPU {walk_plain:.1f} ms)")
-        if cap == 2560:
-            nbytes = B * (cap // 2 + cap // 2) + B * cap * 2 * (W // 32) * 4
-            bs, bys = bound(nbytes, B * cap * (W // 32) * OPS_MYERS_WORD)
-            # the walk reads two plane words per query row it passes
-            rows = int(np.asarray(m).sum())
-            bw, byw = bound(8 * rows + B * (8 + cap + 2),
-                            rows * OPS_WALK_STEP)
-            results["myers_sweep"].update(
-                max_abs_err=err, ms=sweep, plain_ms=sweep_plain,
-                bound_ms=bs, bound_by=bys)
-            results["myers_walk"].update(
-                max_abs_err=werr, ms=wms, plain_ms=walk_plain,
-                bound_ms=bw, bound_by=byw)
+        nbytes = B * (cap // 2 + cap // 2) + B * cap * 2 * (W // 32) * 4
+        bs, bys = bound(nbytes, B * cap * (W // 32) * OPS_MYERS_WORD)
+        # the walk reads two plane words per query row it passes
+        rows = int(np.asarray(m).sum())
+        bw, byw = bound(8 * rows + B * (8 + cap + 2), rows * OPS_WALK_STEP)
+        for name, numbers in (
+                ("myers_sweep", dict(max_abs_err=err, ms=sweep,
+                                     plain_ms=sweep_plain, bound_ms=bs,
+                                     bound_by=bys)),
+                ("myers_walk", dict(max_abs_err=werr, ms=wms,
+                                    plain_ms=walk_plain, bound_ms=bw,
+                                    bound_by=byw))):
+            shape(name, cap, W, B, align, **numbers)
+            if cap == 2560:
+                results[name].update(numbers)
+    # the align stage's scored route (RACON_TPU_MYERS=0) at a W <= 1024
+    # tier and at W = 4096, on its own seed so that the shapes above keep
+    # their inputs
+    rng4 = np.random.default_rng(4096)
+    scored(10240, 4096, 4, 1500, ("packed2",), rng4, False, align)
+    chunk(40960, 4096, 1500, rng4, True)
+    scored(10240, 1024, 4, None, ("rle", "rows"), rng4, False, align)
 
 
-def phase_bench(threads):
-    """Phase 3: consensus stage on the bench workload."""
+def phase_bench(threads, results):
+    """Phase 3: consensus stage on the bench workload, with the RLE walk
+    (the default) and the rows walk (RACON_TPU_WALK=rows) in turns."""
     from racon_tpu_torch.kernels import LAUNCHES, reset_launches
     from racon_tpu_torch.models.polish_model import PolisherConfig
     from racon_tpu_torch.native import bindings
@@ -311,23 +525,46 @@ def phase_bench(threads):
     windows, true = build_workload(seed=1234)
     cfg = PolisherConfig(backend="cuda", num_threads=threads, match=5,
                          mismatch=-4, gap=-8)
-    stage = TorchConsensusStage(cfg, "cuda")
-    reset_launches()
-    t0 = time.perf_counter()
-    with contextlib.redirect_stderr(io.StringIO()):
-        cons, _ = stage.consensus_windows(windows, cfg, Logger())
-    dt = time.perf_counter() - t0
-    counts = dict(LAUNCHES)
-    d = bindings.edit_distance(b"".join(cons), true.tobytes())
-    prof = {k: round(v, 3) for k, v in stage.prof.items()}
-    log(f"[bench] {windows.num_windows} windows in {dt:.3f} s = "
-        f"{windows.num_windows / dt:.2f} windows/s (one pass of a fresh "
-        f"process: includes first-launch costs); launches {counts}; "
-        f"stage {prof}; edit distance to truth {d}")
-    if d != 91:
-        raise SmokeFailure(f"bench workload edit distance {d} != 91")
-    if not (counts["nw_sweep"] and counts["rle_walk"]):
-        raise SmokeFailure(f"consensus kernels not launched: {counts}")
+    escapes = {}
+    try:
+        for run, walk in enumerate(("rle", "rows", "rows", "rle")):
+            if walk == "rows":
+                os.environ["RACON_TPU_WALK"] = "rows"
+            else:
+                os.environ.pop("RACON_TPU_WALK", None)
+            stage = TorchConsensusStage(cfg, "cuda")
+            reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(io.StringIO()):
+                cons, _ = stage.consensus_windows(windows, cfg, Logger())
+            dt = time.perf_counter() - t0
+            counts = dict(LAUNCHES)
+            d = bindings.edit_distance(b"".join(cons), true.tobytes())
+            prof = {k: round(v, 3) for k, v in stage.prof.items()}
+            escapes.setdefault(walk, int(stage.prof["escaped_items"]))
+            if run < 2:
+                record_launches(results, f"bench_{walk}", counts)
+            first = (" (the process's first run: includes first-launch "
+                     "costs)" if run == 0 else "")
+            log(f"[bench] walk {walk}: {windows.num_windows} windows in "
+                f"{dt:.3f} s = {windows.num_windows / dt:.2f} windows/s"
+                f"{first}; launches {counts}; stage {prof}; edit distance "
+                f"to truth {d}")
+            if d != 91:
+                raise SmokeFailure(
+                    f"bench workload edit distance {d} != 91 with the {walk}"
+                    f" walk; band escapes per walk so far {escapes} (rows "
+                    "and RLE decode to the same ops wherever neither "
+                    "escapes)")
+            other = "rle" if walk == "rows" else "rows"
+            if not (counts["nw_sweep"] and counts[f"{walk}_walk"]) \
+                    or counts[f"{other}_walk"]:
+                raise SmokeFailure(f"{walk} walk run launched {counts}")
+            if run == 1:
+                results["rows_walk"]["launches"] = counts["rows_walk"]
+    finally:
+        os.environ.pop("RACON_TPU_WALK", None)
+    log(f"[bench] band escapes per walk: {escapes}")
 
 
 def _polish_cli(tag, wd, argv):
@@ -381,19 +618,21 @@ def _identity(tag, what, seq, true):
     return ident
 
 
-def phase_polish(genome_mb, threads, results):
-    """Phase 4: the default polish path end to end at genome scale."""
+POLISH_ARGV = ["--backend", "cuda", "-m", "5", "-x", "-4", "-g", "-8"]
+
+
+def phase_polish(wd, genome_mb, threads, results):
+    """Phase 4: the default polish path end to end at genome scale, on a
+    dataset made in `wd` (phase 6 reuses it)."""
     from racon_tpu_torch.testing.synth import make_dataset
 
-    with tempfile.TemporaryDirectory() as wd:
-        t0 = time.perf_counter()
-        true = make_dataset(wd, int(genome_mb * 1e6), 8000, 20, 0.12,
-                            seed=11)
-        log(f"[polish] dataset {genome_mb} Mb, 20x 8 kb reads, 12% error, "
-            f"seed 11: made in {time.perf_counter() - t0:.1f} s")
-        _, out, counts = _polish_cli("polish", wd, [
-            "--backend", "cuda", "-m", "5", "-x", "-4", "-g", "-8", "-t",
-            str(threads)])
+    t0 = time.perf_counter()
+    true = make_dataset(wd, int(genome_mb * 1e6), 8000, 20, 0.12, seed=11)
+    log(f"[polish] dataset {genome_mb} Mb, 20x 8 kb reads, 12% error, "
+        f"seed 11: made in {time.perf_counter() - t0:.1f} s")
+    _, out, counts = _polish_cli("polish", wd, [*POLISH_ARGV, "-t",
+                                                str(threads)])
+    record_launches(results, "polish_w500", counts)
     ident = _identity("polish", "polished", out[0][1], true)
     if ident < 99.99:
         raise SmokeFailure(f"identity {ident:.4f}% < 99.99%")
@@ -406,22 +645,26 @@ def phase_polish(genome_mb, threads, results):
         results[k]["launches"] = counts[k]
 
 
-def phase_wide(genome_mb, threads, results):
-    """Phase 5: the wide-band slice (-w 10000) end to end."""
+WIDE_ARGV = ["--backend", "cuda", "-w", "10000", "-m", "5", "-x", "-4",
+             "-g", "-8"]
+
+
+def phase_wide(wd, genome_mb, threads, results):
+    """Phase 5: the wide-band slice (-w 10000) end to end, on a dataset
+    made in `wd` (phase 6 reuses it)."""
     from racon_tpu_torch.testing.synth import make_dataset
 
-    with tempfile.TemporaryDirectory() as wd:
-        t0 = time.perf_counter()
-        true = make_dataset(wd, int(genome_mb * 1e6), 20000, 20, 0.12,
-                            seed=11, mix=(0.2, 0.5, 0.3))
-        with open(os.path.join(wd, "draft.fasta"), "rb") as f:
-            draft = f.read().split(b"\n")[1]
-        log(f"[wide] dataset {genome_mb} Mb, 20x 20 kb reads, 12% error "
-            f"(ins/del/sub 0.2/0.5/0.3), seed 11: made in "
-            f"{time.perf_counter() - t0:.1f} s")
-        p, out, counts = _polish_cli("wide", wd, [
-            "--backend", "cuda", "-w", "10000", "-m", "5", "-x", "-4",
-            "-g", "-8", "-t", str(threads)])
+    t0 = time.perf_counter()
+    true = make_dataset(wd, int(genome_mb * 1e6), 20000, 20, 0.12, seed=11,
+                        mix=(0.2, 0.5, 0.3))
+    with open(os.path.join(wd, "draft.fasta"), "rb") as f:
+        draft = f.read().split(b"\n")[1]
+    log(f"[wide] dataset {genome_mb} Mb, 20x 20 kb reads, 12% error "
+        f"(ins/del/sub 0.2/0.5/0.3), seed 11: made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    p, out, counts = _polish_cli("wide", wd, [*WIDE_ARGV, "-t",
+                                              str(threads)])
+    record_launches(results, "polish_w10000", counts)
     stage = p.consensus_stage
     for k, tiers in enumerate(stage.tier_items):
         shown = ", ".join(f"{t}: {c}" for t, c in sorted(
@@ -442,6 +685,108 @@ def phase_wide(genome_mb, threads, results):
                            f"the draft's {before:.4f}%")
     for k in ("nw_sweep_wide", "packed_walk"):
         results[k]["launches"] = counts[k]
+
+
+def phase_align(datasets, threads, results):
+    """Phase 6: the scored align route (RACON_TPU_MYERS=0 with
+    RACON_TPU_WALK=rows) against the default Myers route: create_polisher
+    -> initialize, once each, on phase 4's dataset (8 kb overlaps: the
+    W <= 1024 tiers, where the rows walk runs) and on phase 5's (20 kb
+    deletion-biased overlaps drift past 448 bases: the W = 4096 tier),
+    with the counts reset just before each run. Breaking points are taken
+    from the align stage as it returns them. `datasets` lists (tag,
+    directory, CLI arguments)."""
+    import numpy as np
+
+    from racon_tpu_torch import cli
+    from racon_tpu_torch.kernels import LAUNCHES, reset_launches
+    from racon_tpu_torch.ops.align_stage import TorchAlignStage
+    from racon_tpu_torch.polisher import create_polisher
+
+    real = TorchAlignStage.breaking_points
+    seen = {"indices": [], "points": []}
+
+    def capture(self, overlaps, indices, *rest):
+        out = real(self, overlaps, indices, *rest)
+        seen["indices"] += list(indices)
+        seen["points"] += out
+        return out
+
+    scored_env = {"RACON_TPU_MYERS": "0", "RACON_TPU_WALK": "rows"}
+    launched = {"myers": {}, "scored": {}}
+    wide = 0
+    TorchAlignStage.breaking_points = capture
+    try:
+        for data, wd, argv in datasets:
+            args = cli.parser().parse_args(
+                [*argv, "-t", str(threads),
+                 *(os.path.join(wd, f) for f in ("reads.fasta", "ovl.paf",
+                                                 "draft.fasta"))])
+            cfg = cli.make_config(args)
+            runs = {}
+            for route, env in (("myers", {}), ("scored", scored_env)):
+                os.environ.update(env)
+                seen["indices"], seen["points"] = [], []
+                reset_launches()
+                t0 = time.perf_counter()
+                with contextlib.redirect_stderr(io.StringIO()):
+                    p = create_polisher(*args.inputs, cfg)
+                    p.initialize()
+                dt = time.perf_counter() - t0
+                counts = dict(LAUNCHES)
+                for k in env:
+                    del os.environ[k]
+                st = p.align_stage.stats
+                shown = ", ".join(f"{t}: {c}" for t, c in sorted(
+                    st["tier_items"].items(),
+                    key=lambda tc: (tc[0] == -1, str(tc[0]))))
+                log(f"[align] {data} {route}: initialize {dt:.3f} s; items "
+                    f"per tier {shown} (-1 = beyond the tiers); host "
+                    f"{st['host_items']}/{st['items']} overlaps "
+                    f"({100 * st['host_items'] / max(1, st['items']):.3f}"
+                    f"%); launches {counts}")
+                record_launches(results, f"align_{route}_{data}", counts)
+                for k, c in counts.items():
+                    launched[route][k] = launched[route].get(k, 0) + c
+                if route == "scored":
+                    wide += sum(c for t, c in st["tier_items"].items()
+                                if t != -1 and t[1] == 4096)
+                runs[route] = dict(seen, host=st["host_items"])
+            a, b = runs["myers"], runs["scored"]
+            # a host-aligned overlap would break ties otherwise than the
+            # device walks; neither route sends one here
+            if a["host"] or b["host"]:
+                raise SmokeFailure(f"{data}: overlaps aligned on the host: "
+                                   f"{a['host']} (Myers), {b['host']} "
+                                   "(scored)")
+            if a["indices"] != b["indices"]:
+                raise SmokeFailure(f"{data}: the two runs aligned different "
+                                   "overlaps")
+            differ = [i for i, x, y in zip(a["indices"], a["points"],
+                                           b["points"])
+                      if not np.array_equal(x, y)]
+            log(f"[align] {data}: breaking points of all "
+                f"{len(a['indices'])} overlaps: "
+                f"{len(a['indices']) - len(differ)} equal, {len(differ)} "
+                "differ")
+            if differ:
+                raise SmokeFailure(f"{data}: breaking points differ on "
+                                   f"overlaps {differ[:20]}")
+    finally:
+        TorchAlignStage.breaking_points = real
+        for k in scored_env:
+            os.environ.pop(k, None)
+    need = ("nw_sweep", "rows_walk", "nw_sweep_wide", "packed_walk")
+    missing = [k for k in need if not launched["scored"][k]]
+    if (missing or launched["scored"]["myers_sweep"]
+            or not launched["myers"]["myers_sweep"]):
+        raise SmokeFailure(f"scored align route launched "
+                           f"{launched['scored']}, Myers route "
+                           f"{launched['myers']}")
+    if not wide:
+        raise SmokeFailure("no item in a W = 4096 tier")
+    log(f"[align] scored route: {wide} items in W = 4096 tiers; launches "
+        f"{launched['scored']}")
 
 
 def main() -> int:
@@ -467,23 +812,47 @@ def main() -> int:
     log(smi)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
-    build.kernels()
-    log(f"[build] kernels built and loaded in {build.build_seconds:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = start_ptxas(tmp)
+        try:
+            build.kernels()
+            log(f"[build] kernels built and loaded in "
+                f"{build.build_seconds:.1f} s")
+            ptxas_report(procs)
+        except SmokeFailure as e:
+            sys.stderr.write(f"chip_smoke: FAILED: {e}\n")
+            return 1
+        finally:
+            for proc in procs.values():
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
     threads = os.cpu_count() or 8
+    # the keys of the contract, from one shape and one main-path run each,
+    # then every shape phase 2 measured and every run's launches
     results = {k: {"name": k, "route": "cuda", "source": src,
                    "replaces": rep, "launches": 0, "max_abs_err": None,
                    "ms": None, "plain_ms": None, "bound_ms": None,
-                   "bound_by": None, "library_ms": None}
+                   "bound_by": None, "library_ms": None, "shapes": [],
+                   "launches_by_path": {}}
                for k, (src, rep) in KERNELS.items()}
     t0 = time.perf_counter()
     try:
-        for phase in (lambda: phase_kernels(results),
-                      lambda: phase_bench(threads),
-                      lambda: phase_polish(args.genome_mb, threads, results),
-                      lambda: phase_wide(args.wide_genome_mb, threads,
-                                         results)):
-            phase()
-            log(f"[time] {time.perf_counter() - t0:.1f} s since the build")
+        with tempfile.TemporaryDirectory() as wd4, \
+                tempfile.TemporaryDirectory() as wd5:
+            for phase in (lambda: phase_kernels(results, threads),
+                          lambda: phase_bench(threads, results),
+                          lambda: phase_polish(wd4, args.genome_mb, threads,
+                                               results),
+                          lambda: phase_wide(wd5, args.wide_genome_mb,
+                                             threads, results),
+                          lambda: phase_align(
+                              [("w500", wd4, POLISH_ARGV),
+                               ("w10000", wd5, WIDE_ARGV)], threads,
+                              results)):
+                phase()
+                log(f"[time] {time.perf_counter() - t0:.1f} s since the "
+                    "build")
     except SmokeFailure as e:
         sys.stderr.write(f"chip_smoke: FAILED: {e}\n")
         return 1

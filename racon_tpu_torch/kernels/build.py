@@ -1,9 +1,9 @@
 """Build and load the port's CUDA kernels at first use.
 
-Sources live in racon_tpu_torch/kernels/csrc: five .cu files with plain C
-launchers (nw_sweep, rle_walk, packed_walk, myers_sweep, myers_walk) and
-one small binding, bindings.cpp, the only file that includes
-torch/extension.h. They are compiled for sm_90a into
+Sources live in racon_tpu_torch/kernels/csrc: six .cu files with plain C
+launchers (nw_sweep, rle_walk, rows_walk, packed_walk, myers_sweep,
+myers_walk) and one small binding, bindings.cpp, the only file that
+includes torch/extension.h. They are compiled for sm_90a into
 racon_tpu_torch/kernels/build/ (gitignored) by
 torch.utils.cpp_extension.load. Where ninja is missing, nvcc builds the
 .cu files alone into a shared library that ctypes loads.
@@ -28,8 +28,8 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
-KERNEL_SOURCES = ("nw_sweep.cu", "rle_walk.cu", "packed_walk.cu",
-                  "myers_sweep.cu", "myers_walk.cu")
+KERNEL_SOURCES = ("nw_sweep.cu", "rle_walk.cu", "rows_walk.cu",
+                  "packed_walk.cu", "myers_sweep.cu", "myers_walk.cu")
 ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 _NAME = "racon_tpu_torch_kernels"
 
@@ -43,9 +43,10 @@ class KernelBuildError(RuntimeError):
 
 
 def kernels():
-    """The loaded kernel module: `nw_sweep`, `rle_walk`, `packed_walk`,
-    `myers_sweep` and `myers_walk`, each taking CUDA tensors (outputs
-    preallocated by the caller) and launching on the current stream."""
+    """The loaded kernel module: `nw_sweep`, `rle_walk`, `rows_walk`,
+    `packed_walk`, `myers_sweep` and `myers_walk`, each taking CUDA
+    tensors (outputs preallocated by the caller) and launching on the
+    current stream."""
     global _kernels, build_seconds
     with _lock:
         if _kernels is None:
@@ -111,6 +112,7 @@ class _CtypesKernels:
         P, I = ctypes.c_void_p, ctypes.c_int
         sigs = {"rtt_nw_sweep": [P] * 5 + [I] * 8 + [P],
                 "rtt_rle_walk": [P] * 4 + [I] * 5 + [P],
+                "rtt_rows_walk": [P] * 4 + [I] * 4 + [P],
                 "rtt_packed_walk": [P] * 4 + [I] * 5 + [P],
                 "rtt_myers_sweep": [P] * 3 + [I] * 4 + [P],
                 "rtt_myers_walk": [P] * 4 + [I] * 4 + [P]}
@@ -145,7 +147,8 @@ class _CtypesKernels:
     def nw_sweep(self, q4, t4, dcb, moves, score, m_cap, n_cap, W, match,
                  mismatch, gap, span):
         B = q4.shape[0]
-        if not ((W % 32 == 0 if W <= 1024 else W % 64 == 0 and W <= 2048)
+        lanes = 1 if W <= 1024 else (2 if W <= 2048 else 4)
+        if not (W % (32 * lanes) == 0 and W <= 4096
                 and m_cap % 16 == 0 and n_cap % 32 == 0
                 and n_cap - m_cap - W // 2 <= 0):
             raise ValueError("nw_sweep: unsupported geometry")
@@ -166,6 +169,16 @@ class _CtypesKernels:
                 self._check(n, "n", torch.int32, (B,)),
                 self._check(payload, "payload", torch.uint8, (B, E + 1))]
         self._call(self._lib.rtt_rle_walk, *ptrs, B, m_cap, n_cap, W, E)
+
+    def rows_walk(self, moves, m, n, payload, m_cap, n_cap, W):
+        B = moves.shape[0]
+        ptrs = [self._check(moves, "moves", torch.int32,
+                            (B, m_cap // 16, W)),
+                self._check(m, "m", torch.int32, (B,)),
+                self._check(n, "n", torch.int32, (B,)),
+                self._check(payload, "payload", torch.uint8,
+                            (B, m_cap + 2))]
+        self._call(self._lib.rtt_rows_walk, *ptrs, B, m_cap, n_cap, W)
 
     def packed_walk(self, moves, m, n, payload, m_cap, n_cap, W, S):
         B = moves.shape[0]

@@ -15,6 +15,9 @@ int rtt_nw_sweep(const uint8_t* q4, const uint8_t* t4, const uint8_t* dcb,
 int rtt_rle_walk(const int32_t* moves, const int32_t* m, const int32_t* n,
                  uint8_t* payload, int B, int m_cap, int n_cap, int W, int E,
                  cudaStream_t stream);
+int rtt_rows_walk(const int32_t* moves, const int32_t* m, const int32_t* n,
+                  uint8_t* payload, int B, int m_cap, int n_cap, int W,
+                  cudaStream_t stream);
 int rtt_packed_walk(const int32_t* moves, const int32_t* m, const int32_t* n,
                     uint8_t* payload, int B, int m_cap, int n_cap, int W,
                     int S, cudaStream_t stream);
@@ -56,7 +59,8 @@ void nw_sweep(const at::Tensor& q4, const at::Tensor& t4,
   check(dcb, "dcb", at::kByte, {B, n_cap / 8});
   check(moves, "moves", at::kInt, {B, m_cap / 16, W});
   check(score, "score", at::kInt, {B});
-  TORCH_CHECK((W <= 1024 ? W % 32 == 0 : W % 64 == 0 && W <= 2048) &&
+  const int64_t lanes = W <= 1024 ? 1 : (W <= 2048 ? 2 : 4);
+  TORCH_CHECK(W % (32 * lanes) == 0 && W <= 4096 &&
               m_cap % 16 == 0 && n_cap % 32 == 0 &&
               n_cap - m_cap - W / 2 <= 0,
               "nw_sweep: unsupported geometry");
@@ -77,6 +81,19 @@ void rle_walk(const at::Tensor& moves, const at::Tensor& m,
   done(rtt_rle_walk(moves.data_ptr<int32_t>(), m.data_ptr<int32_t>(),
                     n.data_ptr<int32_t>(), payload.data_ptr<uint8_t>(), B,
                     m_cap, n_cap, W, E, stream()));
+}
+
+void rows_walk(const at::Tensor& moves, const at::Tensor& m,
+               const at::Tensor& n, const at::Tensor& payload, int64_t m_cap,
+               int64_t n_cap, int64_t W) {
+  const int64_t B = moves.size(0);
+  check(moves, "moves", at::kInt, {B, m_cap / 16, W});
+  check(m, "m", at::kInt, {B});
+  check(n, "n", at::kInt, {B});
+  check(payload, "payload", at::kByte, {B, m_cap + 2});
+  done(rtt_rows_walk(moves.data_ptr<int32_t>(), m.data_ptr<int32_t>(),
+                     n.data_ptr<int32_t>(), payload.data_ptr<uint8_t>(), B,
+                     m_cap, n_cap, W, stream()));
 }
 
 void packed_walk(const at::Tensor& moves, const at::Tensor& m,
@@ -125,6 +142,7 @@ void myers_walk(const at::Tensor& planes, const at::Tensor& m,
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
   mod.def("nw_sweep", &nw_sweep);
   mod.def("rle_walk", &rle_walk);
+  mod.def("rows_walk", &rows_walk);
   mod.def("packed_walk", &packed_walk);
   mod.def("myers_sweep", &myers_sweep);
   mod.def("myers_walk", &myers_walk);

@@ -3,9 +3,10 @@
 // Replaces the TPU kernels racon_tpu/ops/nw_kernel.py::nw_band_batch_t8
 // (body _nw_band_kernel_t8), ::nw_band_batch_t8big (body
 // _nw_band_kernel_t8big) and ::nw_band_batch (body _nw_band_kernel, the
-// lane-major form the reference runs at W = 2048), which compute the same
-// DP and differ only in how they fit TPU VMEM; one kernel, templated on the
-// band lanes per thread, covers every consensus tier (W <= 2048).
+// lane-major form the reference runs at W = 2048 and 4096), which compute
+// the same DP and differ only in how they fit TPU VMEM; one kernel,
+// templated on the band lanes per thread, covers every consensus tier and
+// every align tier of the scored route (W <= 4096).
 //
 // Geometry: band lane k of query row i is target column j = i + dlo + k,
 // dlo = n_cap - m_cap - W/2. Per row: substitution (PAD against a real base
@@ -17,16 +18,20 @@
 // words are contiguous. The score is H at lane n_cap - m_cap - dlo.
 //
 // Design on the H100: one block per item, one thread per band lane up to
-// W = 1024 and two (lanes 2t, 2t+1) at W = 2048, so a block never exceeds
-// 1024 threads. The item's codes and deletion bitmask sit in shared memory;
-// gc is integrated per lane from the bitmask (popcount once, then one add
-// per row, as K1's gc register does). The scan is a serial max over the
+// W = 1024, two (lanes 2t, 2t+1) at W = 2048 and four (4t..4t+3) at
+// W = 4096, so a block never exceeds 1024 threads. The item's codes and
+// deletion bitmask sit in shared memory; gc is integrated per lane from
+// the bitmask (popcount once, then one add per row, as K1's gc register
+// does). The scan is a serial max over the
 // thread's lanes, a warp shuffle scan plus one pass over the warp totals.
 // Only each thread's first lane goes through shared memory (the up move of
 // the thread below reads it). What bounds it: two block barriers and the
 // ~log2(32) shuffle latency chain per row (latency, not bandwidth: 2 bits
 // of output per cell), so enough items must be resident to fill the SMs;
-// at W = 2048 a 1024-thread block holds at most 64 registers per thread.
+// a 1024-thread block holds at most 64 registers per thread (ptxas gives
+// 32, 46 and 46 at one, two and four lanes, no spills). At (40960, 4096)
+// the codes and bitmask take ~93 KB of shared memory, past the 48 KB
+// default, so the launcher raises the limit.
 #include <climits>
 
 #include "common.cuh"
@@ -55,9 +60,10 @@ __device__ int gc_at(const uint32_t* bits, int j, int n_cap, int gap) {
 }
 
 // LPT band lanes per thread: 1 for W <= 1024 (thread k owns lane k), 2 for
-// W = 2048 (thread t owns lanes 2t and 2t+1). Within a thread the lanes'
-// values live in registers; the scan runs a serial max over the thread's
-// lanes, then the warp scan over thread totals, then the warp totals.
+// W = 2048 (thread t owns lanes 2t and 2t+1), 4 for W = 4096. Within a
+// thread the lanes' values live in registers; the scan runs a serial max
+// over the thread's lanes, then the warp scan over thread totals, then the
+// warp totals.
 template <int LPT>
 __global__ void __launch_bounds__(1024)
 nw_sweep_kernel(const uint8_t* __restrict__ q4,
@@ -192,7 +198,9 @@ nw_sweep_kernel(const uint8_t* __restrict__ q4,
 }  // namespace
 
 // band lanes per thread at band width W
-static int lanes_per_thread(int W) { return W <= 1024 ? 1 : 2; }
+static int lanes_per_thread(int W) {
+  return W <= 1024 ? 1 : (W <= 2048 ? 2 : 4);
+}
 
 extern "C" size_t rtt_nw_sweep_smem(int m_cap, int n_cap, int W) {
   const int T = W / lanes_per_thread(W);
@@ -218,20 +226,26 @@ static int launch_sweep(const uint8_t* q4, const uint8_t* t4,
 }
 
 // q4 (B, m_cap/2) u8, t4 (B, n_cap/2) u8, dcb (B, n_cap/8) u8 ->
-// moves (B, m_cap/16, W) i32, score (B,) i32. Requires W % 32 == 0 and
-// W <= 1024 (one lane per thread), or W % 64 == 0 and W <= 2048 (two
-// lanes per thread); m_cap % 16 == 0, n_cap % 32 == 0, dlo <= 0.
+// moves (B, m_cap/16, W) i32, score (B,) i32. Requires W a multiple of
+// 32 * lanes_per_thread(W) and W <= 4096; m_cap % 16 == 0,
+// n_cap % 32 == 0, dlo <= 0.
 extern "C" int rtt_nw_sweep(const uint8_t* q4, const uint8_t* t4,
                             const uint8_t* dcb, int32_t* moves,
                             int32_t* score, int B, int m_cap, int n_cap,
                             int W, int match, int mismatch, int gap,
                             int span, cudaStream_t stream) {
   if (B == 0) return 0;
-  if (lanes_per_thread(W) == 1)
-    return launch_sweep<1>(q4, t4, dcb, moves, score, B, m_cap, n_cap, W,
-                           match, mismatch, gap, span, stream);
-  return launch_sweep<2>(q4, t4, dcb, moves, score, B, m_cap, n_cap, W,
-                         match, mismatch, gap, span, stream);
+  switch (lanes_per_thread(W)) {
+    case 1:
+      return launch_sweep<1>(q4, t4, dcb, moves, score, B, m_cap, n_cap, W,
+                             match, mismatch, gap, span, stream);
+    case 2:
+      return launch_sweep<2>(q4, t4, dcb, moves, score, B, m_cap, n_cap, W,
+                             match, mismatch, gap, span, stream);
+    default:
+      return launch_sweep<4>(q4, t4, dcb, moves, score, B, m_cap, n_cap, W,
+                             match, mismatch, gap, span, stream);
+  }
 }
 
 extern "C" const char* rtt_error_string(int e) {

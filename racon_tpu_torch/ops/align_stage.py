@@ -1,21 +1,29 @@
 """Overlap-alignment stage on a CUDA device: breaking points through the
-Myers sweep and walk kernels. Port of racon_tpu/ops/align_stage_tpu.py.
+Myers sweep and walk kernels, or the scored sweep. Port of
+racon_tpu/ops/align_stage_tpu.py.
 
 Overlap (query-slice, target-slice) pairs are bucketed by length into the
 canonical equal-cap tiers, aligned on the device with edit-distance
-semantics (ops/myers_kernel.align_walk_myers_padded: the "rows" payload at
-every tier), decoded by the port's native runtime, and cut at window
-boundaries natively. Items beyond the last tier or escaping the band are
-aligned by the host C++ aligner, as in the reference.
+semantics, decoded by the port's native runtime, and cut at window
+boundaries natively. A tier runs the Myers kernels
+(ops/myers_kernel.align_walk_myers_padded: the "rows" payload) where
+myers_fits holds; under RACON_TPU_MYERS=0 every tier runs the scored
+route instead, as in the reference (align_stage_tpu.py:343-364): the
+scored sweep at (match, mismatch, gap) = (0, -1, -1) with unit deletion
+costs and the walk walk_fmt picks (rle or rows, as RACON_TPU_WALK says,
+at W <= 1024; packed2 at the W = 4096 tiers). Items beyond the last tier
+or escaping the band are aligned by the host C++ aligner, as in the
+reference.
 
 Left out of the port, each for a reason recorded in ROADMAP.md:
 `small_batch_to_host` (keyed on the JAX prewarm state) and the slow-link
-branch of `myers_tier_fmt` (every tier runs Myers with "rows" here).
+branch of `myers_tier_fmt` (a Myers tier always runs with "rows" here).
 """
 
 from __future__ import annotations
 
-from collections import deque
+import os
+from collections import defaultdict, deque
 
 import numpy as np
 import torch
@@ -23,8 +31,9 @@ import torch
 from ..native import bindings
 
 from .consensus_stage import chunk_size, chunk_spans
-from .geometry import PAD_CODE, encode, rows_payload_width
+from .geometry import PAD_CODE, encode, myers_fits
 from .myers_kernel import align_walk_myers_padded
+from .nw_kernel import align_walk_padded, payload_decoder
 
 # canonical (cap, band) tiers, the reference's (align_stage_tpu.py:32-33);
 # items beyond the last tier go to the host
@@ -47,7 +56,10 @@ class TorchAlignStage:
     def __init__(self, cfg, device):
         self.cfg = cfg
         self.device = torch.device(device)
-        self.stats = {"items": 0, "device_items": 0, "host_items": 0}
+        # tier_items: items per (cap, band, route), route "myers" or
+        # "scored/<walk format>"; -1 = beyond the tiers (host)
+        self.stats = {"items": 0, "device_items": 0, "host_items": 0,
+                      "tier_items": defaultdict(int)}
 
     def breaking_points(self, overlaps, indices, sequences, window_length,
                         logger) -> list[np.ndarray]:
@@ -93,6 +105,8 @@ class TorchAlignStage:
                   & (np.abs(nlen - mlen) <= band // 2 - 64))
             tier_id[ok] = ti
         host: list[int] = list(np.flatnonzero(tier_id < 0))
+        if host:
+            self.stats["tier_items"][-1] += len(host)
 
         all_ops: list[np.ndarray | None] = [None] * len(idx)
         all_counts = np.zeros(len(idx), np.int64)
@@ -100,11 +114,12 @@ class TorchAlignStage:
         done = [0]
 
         def drain_one():
-            sel, cap, payload = pending.popleft()
+            sel, cap, band, fmt, payload = pending.popleft()
             payload = payload.cpu().numpy()
             escaped = payload[:, -1] != 0
-            ops_flat, ops_off, counts = bindings.opstream_rows_to_ops_batch(
-                payload, rows_payload_width(cap), mlen[sel], nlen[sel], thr)
+            decode, codes, budget = payload_decoder(fmt, payload, cap, band)
+            ops_flat, ops_off, counts = decode(codes, budget, mlen[sel],
+                                               nlen[sel], thr)
             for bi, z in enumerate(sel):
                 if escaped[bi]:
                     host.append(z)
@@ -121,6 +136,10 @@ class TorchAlignStage:
             members = np.flatnonzero(tier_id == ti)
             # length-sorted chunks keep the walk's threads in near lockstep
             members = members[np.argsort(mlen[members], kind="stable")]
+            # RACON_TPU_MYERS=0 sends every tier to the scored route, read
+            # at call time as the reference does (myers_kernel.py:414-415)
+            myers = (os.environ.get("RACON_TPU_MYERS", "1") != "0"
+                     and myers_fits(cap, cap, band))
             for lo, hi in chunk_spans(len(members), _chunk_size(cap, band)):
                 sel = members[lo:hi]
                 while len(pending) >= _MAX_QUEUED:
@@ -131,12 +150,24 @@ class TorchAlignStage:
                 t4 = bindings.pack_rows_nib(tenc, toff_all[sel],
                                             toff_all[sel] + nlen[sel], cap,
                                             PAD_CODE, thr)
-                payload, _, _ = align_walk_myers_padded(
-                    q4, t4, mlen[sel].astype(np.int32),
-                    nlen[sel].astype(np.int32), m_cap=cap, n_cap=cap,
-                    w_band=band, device=self.device)
-                pending.append((sel, cap, payload))
+                if myers:
+                    payload, _, fmt = align_walk_myers_padded(
+                        q4, t4, mlen[sel].astype(np.int32),
+                        nlen[sel].astype(np.int32), m_cap=cap, n_cap=cap,
+                        w_band=band, device=self.device)
+                    route = "myers"
+                else:
+                    # unit deletion costs everywhere: an all-ones bitmask
+                    dcb = np.full((len(sel), cap // 8), 0xFF, np.uint8)
+                    payload, _, fmt = align_walk_padded(
+                        q4, t4, dcb, mlen[sel].astype(np.int32),
+                        nlen[sel].astype(np.int32), m_cap=cap, n_cap=cap,
+                        w_band=band, match=0, mismatch=-1, gap=-1,
+                        device=self.device)
+                    route = "scored/" + fmt
+                pending.append((sel, cap, band, fmt, payload))
                 self.stats["device_items"] += len(sel)
+                self.stats["tier_items"][(cap, band, route)] += len(sel)
         while pending:
             drain_one()
 

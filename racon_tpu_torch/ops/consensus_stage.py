@@ -1,12 +1,13 @@
 """Consensus stage on a CUDA device: iterative star-POA around the scored
-sweep and the RLE / packed2 walk kernels. Port of
+sweep and the RLE / rows / packed2 walk kernels. Port of
 racon_tpu/ops/consensus_stage_tpu.py.
 
 Per refinement pass every (window, layer) item is aligned to its window's
 current backbone on the device (ops/nw_kernel.align_walk_padded: the
-scored banded sweep plus the RLE walk, or the packed2 walk at the
-W = 2048 tier); the port's native runtime decodes the streams and merges
-them into the per-window graphs (bindings.poa_round_batch), giving the
+scored banded sweep plus the RLE walk, or the rows walk under
+RACON_TPU_WALK=rows, or the packed2 walk at the W = 2048 tier); the
+port's native runtime decodes the streams and merges them into the
+per-window graphs (bindings.poa_round_batch), giving the
 final consensus or the expanded backbone of the next pass. Items beyond
 the tiers or escaping the band are realigned on the host thread pool, as
 in the reference; a tier wider than the sweep kernel takes would be too
@@ -31,8 +32,8 @@ import torch
 from ..native import bindings
 from ..utils.phred import PHRED_OFFSET
 
-from .geometry import PAD_CODE, encode, rle_events, sweep_fits, walk_steps
-from .nw_kernel import align_walk_padded
+from .geometry import PAD_CODE, encode, sweep_fits
+from .nw_kernel import align_walk_padded, payload_decoder
 
 _MOVES_BUDGET = 1 << 30  # device bytes of one chunk's move words
 
@@ -266,13 +267,8 @@ class TorchConsensusStage:
             t1 = time.perf_counter()
             self.prof["fetch_s"] += t1 - t0
             escaped = payload[:, -1] != 0
-            codes = np.ascontiguousarray(payload[:, :-1])
-            if fmt == "rle":
-                decode = bindings.opstream_rle_to_ops_batch
-                budget = rle_events(cap, cap, w_band)
-            else:
-                decode = bindings.opstream_packed_to_ops_batch
-                budget = walk_steps(cap, cap, w_band)
+            decode, codes, budget = payload_decoder(fmt, payload, cap,
+                                                    w_band)
             _, _, counts = decode(codes, budget, mlen[sel], nlen[sel], thr,
                                   dst=ops_blob, dst_off=ops_off2[:-1][sel])
             host_parts.append(sel[escaped])  # band escape -> host realign

@@ -89,16 +89,18 @@ def peq_words(n_cap: int, w_band: int) -> int:
 
 def sweep_lanes(w_band: int) -> int:
     """Band lanes each thread of the sweep kernel owns: one up to W = 1024,
-    two above, so a block never exceeds 1024 threads."""
-    return 1 if w_band <= 1024 else 2
+    two up to 2048, four up to 4096, so a block never exceeds 1024
+    threads."""
+    return 1 if w_band <= 1024 else (2 if w_band <= 2048 else 4)
 
 
 def sweep_fits(m_cap: int, n_cap: int, w_band: int) -> bool:
     """Shapes the scored sweep kernel takes: W a multiple of 32 up to 1024
-    (one lane per thread) or of 64 up to 2048 (two lanes per thread, the
-    reference's lane-major tier, nw_kernel.py:186), and the t8 regime
-    dlo <= 0. Wider bands are refused."""
-    return (w_band % (32 * sweep_lanes(w_band)) == 0 and w_band <= 2048
+    (one lane per thread), of 64 up to 2048 or of 128 up to 4096 (two or
+    four lanes per thread, the reference's lane-major kernel,
+    nw_kernel.py:186), and the t8 regime dlo <= 0. Wider bands are
+    refused."""
+    return (w_band % (32 * sweep_lanes(w_band)) == 0 and w_band <= 4096
             and m_cap % 16 == 0 and n_cap % 32 == 0
             and band_dlo(m_cap, n_cap, w_band) <= 0)
 

@@ -1,14 +1,14 @@
-"""Scored banded-NW sweep and the RLE and packed2 traceback walks: the
-consensus stage's device core (port of the main path of
-racon_tpu/ops/nw_kernel.py).
+"""Scored banded-NW sweep and the RLE, rows and packed2 traceback walks:
+the consensus stage's device core, and the align stage's under
+RACON_TPU_MYERS=0 (port of racon_tpu/ops/nw_kernel.py).
 
 Each function takes its tensors on one device. On a CUDA tensor it
 launches the hand-written kernel (kernels/csrc/nw_sweep.cu,
-kernels/csrc/rle_walk.cu, kernels/csrc/packed_walk.cu) and counts the
-launch; on a CPU tensor it runs
-the plain PyTorch version beside it, which is the readable specification
-and what the CPU tests hold against the JAX package. Any other device
-raises.
+kernels/csrc/rle_walk.cu, kernels/csrc/rows_walk.cu,
+kernels/csrc/packed_walk.cu) and counts the launch; on a CPU tensor it
+runs the plain PyTorch version beside it, which is the readable
+specification and what the CPU tests hold against the JAX package. Any
+other device raises.
 
 Layouts (see ops/batch.py for the packed inputs):
   moves (B, m_cap // 16, W) int32  2-bit moves DIAG=0 > UP=1 > LEFT=2,
@@ -19,6 +19,10 @@ Layouts (see ops/batch.py for the packed inputs):
   score (B,) int32                 H at the end lane
   payload (B, E + 1) uint8         RLE events then the escape flag,
                                    E = rle_events(m_cap, n_cap, W)
+  payload (B, m_cap + 2) uint8     rows: one record per query row
+                                   (REC_DIAG/REC_UP | deletions << 2, 0 for
+                                   an inactive row), the final-deletions
+                                   byte, the escape flag
   payload (B, S // 4 + 1) uint8    packed2: 2-bit step codes, 4 per byte,
                                    then the escape flag,
                                    S = walk_steps(m_cap, n_cap, W)
@@ -26,13 +30,18 @@ Layouts (see ops/batch.py for the packed inputs):
 
 from __future__ import annotations
 
+import os
+
+import numpy as np
 import torch
 
 from ..kernels import LAUNCHES
+from ..native import bindings
 from .batch import to_device, unpack_bits, unpack_codes
-from .geometry import (NEG, OP_STREAM_SKIP, PAD_CODE, PACK, RLE_LEFT,
-                       RLE_SKIP, RLE_UP, SCAN_FILL, band_dlo, rle_events,
-                       scan_span, sweep_fits, sweep_lanes, walk_steps)
+from .geometry import (NEG, OP_STREAM_SKIP, PAD_CODE, PACK, REC_DIAG,
+                       REC_UP, RLE_LEFT, RLE_SKIP, RLE_UP, SCAN_FILL,
+                       band_dlo, rle_events, rows_payload_width, scan_span,
+                       sweep_fits, sweep_lanes, walk_steps)
 
 
 def _device_kind(t: torch.Tensor) -> str:
@@ -53,8 +62,8 @@ def nw_sweep(q4, t4, dcb, *, m_cap, n_cap, w_band, match, mismatch, gap):
     """q4 (B, m_cap//2), t4 (B, n_cap//2), dcb (B, n_cap//8) uint8 ->
     (moves (B, m_cap//16, W) int32, score (B,) int32). Replaces the TPU
     kernels nw_band_batch_t8 / nw_band_batch_t8big (W <= 1024, launches
-    counted as "nw_sweep") and nw_band_batch (W = 2048, two band lanes
-    per thread, counted as "nw_sweep_wide")."""
+    counted as "nw_sweep") and nw_band_batch (W = 2048 and 4096, two or
+    four band lanes per thread, counted as "nw_sweep_wide")."""
     if not sweep_fits(m_cap, n_cap, w_band):
         raise ValueError(f"sweep shape ({m_cap}, {n_cap}, {w_band}) "
                          "unsupported")
@@ -219,6 +228,66 @@ def rle_walk_plain(moves, m, n, *, m_cap, n_cap, w_band, max_events=None):
     return torch.cat([events, esc[:, None].to(torch.uint8)], 1)
 
 
+# -------------------------------------------------------------- rows walk
+
+
+def rows_walk(moves, m, n, *, m_cap, n_cap, w_band):
+    """moves from nw_sweep, m/n (B,) int32 -> rows payload (B, m_cap + 2)
+    uint8, byte for byte that of walk_rows_t (the TPU kernel it replaces)
+    with its (B, m_cap + 2) payload: per query row, from m down to 1, the
+    deletion run taken in that row and the move that leaves it."""
+    if _device_kind(moves) == "cpu":
+        return rows_walk_plain(moves, m, n, m_cap=m_cap, n_cap=n_cap,
+                               w_band=w_band)
+    from ..kernels.build import kernels
+
+    payload = torch.empty((moves.shape[0], rows_payload_width(m_cap)),
+                          dtype=torch.uint8, device=moves.device)
+    kernels().rows_walk(moves, m, n, payload, m_cap, n_cap, w_band)
+    LAUNCHES["rows_walk"] += 1
+    return payload
+
+
+def rows_walk_plain(moves, m, n, *, m_cap, n_cap, w_band):
+    """Plain PyTorch version of rows_walk on CPU tensors: walk_rows_ref's
+    row loop, every item stepping one query row per iteration, the
+    deletion-run exit of a row found by a running max over the band
+    (torch.cummax) instead of the reference's log-step scan. Rows above
+    every item's m are inactive everywhere and skipped."""
+    if moves.device.type != "cpu":
+        raise ValueError("rows_walk_plain takes CPU tensors")
+    B = moves.shape[0]
+    W = w_band
+    dlo = band_dlo(m_cap, n_cap, W)
+    words = moves.to(torch.int64) & 0xFFFFFFFF
+    kcol = torch.arange(W)
+    m64 = m.to(torch.int64)[:, None]
+    kvec = n.to(torch.int64)[:, None] - m64 - dlo
+    esc = torch.zeros((B, 1), dtype=torch.bool)
+    recs = torch.zeros((B, m_cap), dtype=torch.int64)
+    top = min(int(m64.max()), m_cap) if B else 0
+    for i in range(top, 0, -1):
+        mv = (words[:, (i - 1) // PACK] >> (2 * ((i - 1) % PACK))) & 3
+        mv = torch.where(kcol == -(i + dlo), 1, mv)  # j = 0: forced UP
+        # nearest non-LEFT lane at or below each lane, -1 where none
+        base = torch.cummax(torch.where(mv != 2, kcol, -1), dim=1).values
+        hit = (kvec >= 0) & (kvec < W)
+        k_exit = torch.gather(base, 1, torch.clamp(kvec, 0, W - 1))
+        mv_exit = torch.gather(mv, 1, torch.clamp(k_exit, 0, W - 1))
+        nleft = kvec - k_exit
+        active = (i <= m64) & ~esc
+        esc = esc | (active & (~hit | (k_exit < 0) | (mv_exit == 3)
+                               | (nleft > 63)))
+        act2 = active & ~esc
+        op = torch.where(mv_exit == 1, REC_UP, REC_DIAG)
+        recs[:, i - 1] = torch.where(act2, op | (nleft << 2), 0)[:, 0]
+        kvec = torch.where(act2, k_exit + (mv_exit == 1).long(), kvec)
+    jfin = dlo + kvec
+    esc = esc | (jfin < 0) | (jfin > 255)
+    return torch.cat([recs, torch.clamp(jfin, 0, 255), esc.long()],
+                     1).to(torch.uint8)
+
+
 # ----------------------------------------------------------- packed2 walk
 
 
@@ -292,28 +361,49 @@ def packed_walk_plain(moves, m, n, *, m_cap, n_cap, w_band, max_steps=None):
 
 
 def walk_fmt(w_band: int) -> str:
-    """Payload format of a consensus tier (nw_kernel.py:2129-2160 on a real
-    chip): "rle" where the reference's transposed sweeps run (W <= 1024),
-    "packed2" at the lane-major tier (W = 2048)."""
-    return "rle" if sweep_lanes(w_band) == 1 else "packed2"
+    """Payload format of a scored-sweep tier (nw_kernel.py:2129-2160 on a
+    real chip): "packed2" at the lane-major tiers (W = 2048, 4096); where
+    the reference's transposed sweeps run (W <= 1024), "rows" or "rle" as
+    RACON_TPU_WALK says (read at call time), and "rle" for "auto" or any
+    other value."""
+    if sweep_lanes(w_band) != 1:
+        return "packed2"
+    forced = os.environ.get("RACON_TPU_WALK", "auto")
+    return forced if forced in ("rows", "rle") else "rle"
+
+
+def payload_decoder(fmt, payload, cap, w_band):
+    """(decoder, codes, budget) of the port's native runtime for a walk
+    payload (numpy, escape flag last) of format `fmt` at (cap, cap,
+    w_band): call decoder(codes, budget, m, n, threads, ...). The rows
+    decoder reads the whole payload row; the others every byte but the
+    escape flag."""
+    if fmt == "rows":
+        return (bindings.opstream_rows_to_ops_batch, payload,
+                rows_payload_width(cap))
+    codes = np.ascontiguousarray(payload[:, :-1])
+    if fmt == "rle":
+        return (bindings.opstream_rle_to_ops_batch, codes,
+                rle_events(cap, cap, w_band))
+    return (bindings.opstream_packed_to_ops_batch, codes,
+            walk_steps(cap, cap, w_band))
 
 
 def align_walk_padded(q4, t4, dcb, m, n, *, m_cap, n_cap, w_band, match,
                       mismatch, gap, device):
-    """The consensus stage's fused dispatch: the packed numpy batch goes to
+    """The scored stages' fused dispatch: the packed numpy batch goes to
     `device`, through the sweep and a walk, and comes back as (payload,
     score (B,) int32, fmt) on that device, in the reference's payload
-    format: fmt "rle" (decode with bindings.opstream_rle_to_ops_batch
-    against rle_events) or "packed2" (bindings.opstream_packed_to_ops_batch
-    against walk_steps), as walk_fmt picks. Unlike the reference there is
-    no padding of the batch: a kernel launch takes any B."""
+    format: fmt "rle", "rows" or "packed2", as walk_fmt picks (decode
+    with payload_decoder). Unlike the reference there is no padding of the
+    batch: a kernel launch takes any B."""
     batch = to_device(q4, t4, dcb, m, n, m_cap=m_cap, n_cap=n_cap,
                       device=device)
     moves, score = nw_sweep(batch.q4, batch.t4, batch.dcb, m_cap=m_cap,
                             n_cap=n_cap, w_band=w_band, match=match,
                             mismatch=mismatch, gap=gap)
     fmt = walk_fmt(w_band)
-    walk = rle_walk if fmt == "rle" else packed_walk
+    walk = {"rle": rle_walk, "rows": rows_walk, "packed2": packed_walk}[fmt]
     payload = walk(moves, batch.m, batch.n, m_cap=m_cap, n_cap=n_cap,
                    w_band=w_band)
     return payload, score, fmt

@@ -70,10 +70,29 @@ def test_sweep_and_rle_walk_match_plain(gpu, cap, w):
     assert torch.equal(payload.cpu(), nk.rle_walk_plain(pm, c.m, c.n, **geo))
 
 
-@pytest.mark.parametrize("cap,w", [(256, 128), (10240, 2048)])
+@pytest.mark.parametrize("cap,w", [(640, 128), (5120, 1024)])
+def test_rows_walk_matches_plain(gpu, cap, w):
+    q4, t4, dcb, m, n = _packed(cap + w + 2, 96 if cap < 1000 else 8, cap,
+                                w)
+    geo = dict(m_cap=cap, n_cap=cap, w_band=w)
+    g = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap, device=gpu)
+    c = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap, device="cpu")
+    moves, _ = nk.nw_sweep(g.q4, g.t4, g.dcb, **geo, match=5, mismatch=-4,
+                           gap=-8)
+    before = LAUNCHES["rows_walk"]
+    payload = nk.rows_walk(moves, g.m, g.n, **geo)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rows_walk"] == before + 1
+    assert torch.equal(payload.cpu(),
+                       nk.rows_walk_plain(moves.cpu(), c.m, c.n, **geo))
+
+
+@pytest.mark.parametrize("cap,w", [(256, 128), (10240, 2048),
+                                   (10240, 4096)])
 def test_sweep_and_packed_walk_match_plain(gpu, cap, w):
-    """The packed2 path: at W = 2048 the sweep's two-lanes-per-thread
-    instantiation (counted as nw_sweep_wide), then the packed walk."""
+    """The packed2 path: at W = 2048 and 4096 the sweep's two- and
+    four-lanes-per-thread instantiations (counted as nw_sweep_wide), then
+    the packed walk."""
     q4, t4, dcb, m, n = _packed(cap + w + 1, 8, cap, w // 2 - 100)
     geo = dict(m_cap=cap, n_cap=cap, w_band=w)
     sc = dict(match=5, mismatch=-4, gap=-8)
@@ -118,7 +137,13 @@ def test_kernels_refuse_wrong_inputs(gpu):
                            -8, 128)
 
 
-def test_cuda_polish_matches_cpu(gpu, tmp_path):
+@pytest.mark.parametrize("env", [{}, {"RACON_TPU_MYERS": "0",
+                                      "RACON_TPU_WALK": "rows"}])
+def test_cuda_polish_matches_cpu(gpu, tmp_path, monkeypatch, env):
+    """The default path, and the scored stack on both stages (the scored
+    align route and the rows walk)."""
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
     from racon_tpu_torch.models.polish_model import PolisherConfig
     from racon_tpu_torch.polisher import create_polisher
 

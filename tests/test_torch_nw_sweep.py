@@ -104,13 +104,13 @@ def test_sweep_matches_t8_pallas_interpret():
 
 
 def test_sweep_refuses_band_wider_than_kernel():
-    """The sweep takes W up to 2048 (two band lanes per thread) in the
-    dlo <= 0 regime; W = 4096, or a band that starts right of the
+    """The sweep takes W up to 4096 (four band lanes per thread) in the
+    dlo <= 0 regime; W = 8192, or a band that starts right of the
     diagonal (dlo > 0), is refused on every device."""
     q4 = torch.zeros((1, 5120), dtype=torch.uint8)
     dcb = torch.zeros((1, 1280), dtype=torch.uint8)
     with pytest.raises(ValueError, match="unsupported"):
-        port.nw_sweep(q4, q4, dcb, m_cap=10240, n_cap=10240, w_band=4096,
+        port.nw_sweep(q4, q4, dcb, m_cap=10240, n_cap=10240, w_band=8192,
                       match=5, mismatch=-4, gap=-8)
     q_short = torch.zeros((1, 64), dtype=torch.uint8)
     t_long = torch.zeros((1, 256), dtype=torch.uint8)
