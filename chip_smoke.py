@@ -6,8 +6,9 @@
 Phases (each must pass, or the script exits non-zero):
   1. the card's name and power limit, the torch/CUDA versions, the build
      of the kernels from racon_tpu_torch/kernels/csrc, and ptxas's
-     register and spill counts of the sweep and the rows walk (a separate
-     `nvcc -Xptxas -v` compile of their sources, run beside the build);
+     register and spill counts of the sweep, the rows walk and the panel
+     sweep's five instantiations (a separate `nvcc -Xptxas -v` compile of
+     their sources, run beside the build);
   2. each kernel against its plain PyTorch version (on the host CPU) at the
      main paths' shapes, byte for byte, with CUDA-event times: the sweep,
      RLE walk and rows walk at (640,128) and (5120,1024) (with the two
@@ -42,7 +43,14 @@ Phases (each must pass, or the script exits non-zero):
      the sweep and the rows walk (phase 4's 8 kb overlaps, W <= 1024
      tiers) and the wide sweep and the packed walk (phase 5's drifting
      20 kb overlaps, W = 4096); no overlap may go to the host in either
-     run, and every overlap's breaking points must equal the Myers run's.
+     run, and every overlap's breaking points must equal the Myers run's;
+  7. the ablation harness (racon_tpu_torch.benchmarks.profile_ablate) at
+     the JAX harness's default (B 8192, cap 640, W 128; its own data, seed
+     0): every line's ms, each panel-sweep variant's bound; then K7
+     (nw_sweep_t) and each K8 variant (nw_ablate) byte for byte against
+     its plain version on the first 256 items (nomoves: the score only),
+     K7 against K1 (nw_sweep) on the same items packed, and the fused
+     line's payload against the walk-only line's.
 Prints one JSON line of per-kernel results (the contract's keys, then
 every shape phase 2 measured under `shapes` and each run's launches
 under `launches_by_path`), the card's name and power limit, then the
@@ -81,9 +89,11 @@ KERNELS = {  # name -> (source, TPU kernel or jnp routine it replaces)
     "packed_walk": (CSRC + "packed_walk.cu",
                     "racon_tpu/ops/nw_kernel.py:1803"),
     "rows_walk": (CSRC + "rows_walk.cu", "racon_tpu/ops/nw_kernel.py:1990"),
+    "nw_sweep_t": (CSRC + "nw_sweep_t.cu", "racon_tpu/ops/nw_kernel.py:737"),
+    "nw_ablate": (CSRC + "nw_sweep_t.cu", "benchmarks/profile_ablate.py:121"),
 }
 # sources whose ptxas report (registers, spills) phase 1 prints
-PTXAS_SOURCES = ("nw_sweep.cu", "rows_walk.cu")
+PTXAS_SOURCES = ("nw_sweep.cu", "rows_walk.cu", "nw_sweep_t.cu")
 
 # Least-time model of one H100 SXM: 3.35 TB/s of HBM (NVIDIA data sheet)
 # and 16.73 Tops/s of INT32 (132 SMs x 64 INT32 lanes x 1.98 GHz boost:
@@ -150,10 +160,11 @@ def ptxas_report(procs):
         for line in out.splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
-                # mangled: <length><name>[ILi<lanes>EE]...
-                k = re.search(r"\d+([a-z_]+_kernel)(?:ILi(\d+)EE)?",
+                # mangled: <length><name>[I(L[ib]<value>E)+E]...
+                k = re.search(r"\d+([a-z_]+_kernel)(I(?:L[a-z]\d+E)+E)?",
                               m.group(1))
-                name = k.group(1) + (f"<{k.group(2)}>" if k.group(2) else "")
+                args = re.findall(r"L[a-z](\d+)E", k.group(2) or "")
+                name = k.group(1) + (f"<{','.join(args)}>" if args else "")
                 continue
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                           r"stores, (\d+) bytes spill loads", line)
@@ -789,6 +800,100 @@ def phase_align(datasets, threads, results):
         f"{launched['scored']}")
 
 
+def _sweep_t_bound(B, m_cap, n_cap, W, variant):
+    """(least ms, what bounds it) of one panel-sweep variant on B items,
+    by what that variant must read, compute and write: every variant
+    writes the score; full (K7) reads q, tp and gcp once and writes the
+    moves, 15 ops per cell; noclosure reads no gc past row 0 and drops the
+    scan and the gc arithmetic (11 ops); nomoves writes no moves (12 ops);
+    noload reads one query code and one band window of tp and of gcp (W + 1
+    columns) per item; empty reads gcp's first W columns and does one add
+    per move word it stores."""
+    score, moves = 4 * B, 4 * B * (m_cap // 16) * W
+    q, window = 4 * B * m_cap, 4 * B * W
+    tp = 4 * B * (n_cap + 2 * W)
+    gcp = tp + 4 * B
+    cells = B * m_cap * W
+    if variant == "empty":
+        return bound(window + moves + score, moves // 4)
+    nbytes, ops = {
+        "full": (q + tp + gcp + moves, OPS_SWEEP_CELL),
+        "noclosure": (q + tp + window + moves, OPS_SWEEP_CELL - 4),
+        "nomoves": (q + tp + gcp, OPS_SWEEP_CELL - 3),
+        "noload": (4 * B + 2 * window + 4 * B + moves, OPS_SWEEP_CELL),
+    }[variant]
+    return bound(nbytes + score, cells * ops)
+
+
+def phase_ablate(results):
+    """Phase 7: the ablation harness at the JAX harness's default shape,
+    with the counts reset just before it; then each panel-sweep launch of
+    its run against its plain version on the first 256 items, K7 against
+    K1 on the same items packed, and the fused line against the walk."""
+    import torch
+
+    from racon_tpu_torch.benchmarks import profile_ablate as pa
+    from racon_tpu_torch.kernels import LAUNCHES, reset_launches
+    from racon_tpu_torch.ops import nw_kernel as nk
+    from racon_tpu_torch.ops.batch import to_device
+
+    B, cap, W, n = 8192, 640, 128, 256
+    geo = dict(m_cap=cap, n_cap=cap, w_band=W)
+    inp = pa.make_inputs(B, cap, W)
+    reset_launches()
+    lines = pa.run_lines(inp, "cuda", out=lambda s: log(f"[ablate] {s}"))
+    torch.cuda.synchronize()
+    counts = dict(LAUNCHES)
+    log(f"[ablate] launches {counts}")
+    record_launches(results, "ablate", counts)
+    if not (counts["nw_sweep_t"] and counts["nw_ablate"]):
+        raise SmokeFailure(f"the harness launched {counts}")
+    for k in ("nw_sweep_t", "nw_ablate"):
+        results[k]["launches"] = counts[k]
+    cpu = [torch.from_numpy(inp[k][:n]) for k in ("q", "tp", "gcp")]
+    checks = [("nw_ablate", v, v, lambda v=v: pa.run_variant_plain(
+        *cpu, **geo, variant=v)) for v in pa.VARIANTS]
+    checks.append(("nw_sweep_t", "nwonly", "full", lambda: nk.nw_sweep_t_plain(
+        *cpu, **geo, **pa.SCORES)))
+    for name, line, v, plain in checks:
+        ms, (moves, score) = lines[line]
+        (pm, ps), plain_ms = host_ms(plain)
+        err = compare(f"{line} score", score[:n], ps)
+        if v != "nomoves":
+            err = max(err, compare(f"{line} moves", moves[:n], pm))
+        bms, by = _sweep_t_bound(B, cap, cap, W, v)
+        log(f"[ablate] {line} ({cap},{W}) B={B}: byte-equal on the first "
+            f"{n} items{' (score only)' if v == 'nomoves' else ''}; "
+            f"{ms:.3f} ms (bound {bms:.5f} ms by {by}; plain CPU "
+            f"{plain_ms:.1f} ms for {n} items)")
+        numbers = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       bound_ms=bms, bound_by=by)
+        results[name]["shapes"].append(dict(shape=[cap, W, B], variant=line,
+                                             plain_items=n, **numbers))
+        if v == "full":
+            results[name].update(numbers)
+    k7_moves, k7_score = lines["nwonly"][1]
+    pk = to_device(inp["q4"], inp["t4"], inp["dcb"], inp["m"], inp["n"],
+                   m_cap=cap, n_cap=cap, device="cuda")
+    k1_moves, k1_score = nk.nw_sweep(pk.q4, pk.t4, pk.dcb, **geo,
+                                     **pa.SCORES)
+    compare("nw_sweep_t moves vs nw_sweep's", k7_moves, k1_moves.cpu())
+    compare("nw_sweep_t score vs nw_sweep's", k7_score, k1_score.cpu())
+    payload, _, fmt = lines["fused+h2d"][1]
+    compare(f"fused+h2d {fmt} payload vs walkonly's", payload,
+            lines["walkonly"][1].cpu())
+    k1_ms, _ = pa.timed(lambda: nk.nw_sweep(pk.q4, pk.t4, pk.dcb, **geo,
+                                            **pa.SCORES), "cuda")
+    bs, bys = _sweep_bound(B, cap, W)
+    results["nw_sweep"]["shapes"].append(dict(
+        shape=[cap, W, B], scores="ablation harness", ms=k1_ms, bound_ms=bs,
+        bound_by=bys))
+    log(f"[ablate] K7 byte-equal to K1 (nw_sweep) on all {B} items packed; "
+        f"K1 on them {k1_ms:.3f} ms (median of 5, bound {bs:.5f} ms by "
+        f"{bys}) against K7's {lines['nwonly'][0]:.3f} ms; the fused line's "
+        f"{fmt} payload equals the walk-only line's")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--genome-mb", type=float, default=4.6,
@@ -849,10 +954,15 @@ def main() -> int:
                           lambda: phase_align(
                               [("w500", wd4, POLISH_ARGV),
                                ("w10000", wd5, WIDE_ARGV)], threads,
-                              results)):
+                              results),
+                          lambda: phase_ablate(results)):
                 phase()
                 log(f"[time] {time.perf_counter() - t0:.1f} s since the "
                     "build")
+        unlaunched = [k for k, r in results.items() if not r["launches"]]
+        if unlaunched:
+            raise SmokeFailure(f"no main-path launches recorded for "
+                               f"{unlaunched}")
     except SmokeFailure as e:
         sys.stderr.write(f"chip_smoke: FAILED: {e}\n")
         return 1

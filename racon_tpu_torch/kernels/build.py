@@ -1,9 +1,10 @@
 """Build and load the port's CUDA kernels at first use.
 
-Sources live in racon_tpu_torch/kernels/csrc: six .cu files with plain C
-launchers (nw_sweep, rle_walk, rows_walk, packed_walk, myers_sweep,
-myers_walk) and one small binding, bindings.cpp, the only file that
-includes torch/extension.h. They are compiled for sm_90a into
+Sources live in racon_tpu_torch/kernels/csrc: seven .cu files with plain
+C launchers (nw_sweep, rle_walk, rows_walk, packed_walk, myers_sweep,
+myers_walk, nw_sweep_t), their headers (common.cuh, sweep_scan.cuh), and
+one small binding, bindings.cpp, the only file that includes
+torch/extension.h. They are compiled for sm_90a into
 racon_tpu_torch/kernels/build/ (gitignored) by
 torch.utils.cpp_extension.load. Where ninja is missing, nvcc builds the
 .cu files alone into a shared library that ctypes loads.
@@ -29,7 +30,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 KERNEL_SOURCES = ("nw_sweep.cu", "rle_walk.cu", "rows_walk.cu",
-                  "packed_walk.cu", "myers_sweep.cu", "myers_walk.cu")
+                  "packed_walk.cu", "myers_sweep.cu", "myers_walk.cu",
+                  "nw_sweep_t.cu")
 ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 _NAME = "racon_tpu_torch_kernels"
 
@@ -44,9 +46,9 @@ class KernelBuildError(RuntimeError):
 
 def kernels():
     """The loaded kernel module: `nw_sweep`, `rle_walk`, `rows_walk`,
-    `packed_walk`, `myers_sweep` and `myers_walk`, each taking CUDA
-    tensors (outputs preallocated by the caller) and launching on the
-    current stream."""
+    `packed_walk`, `myers_sweep`, `myers_walk` and `nw_sweep_t`, each
+    taking CUDA tensors (outputs preallocated by the caller) and launching
+    on the current stream."""
     global _kernels, build_seconds
     with _lock:
         if _kernels is None:
@@ -115,7 +117,8 @@ class _CtypesKernels:
                 "rtt_rows_walk": [P] * 4 + [I] * 4 + [P],
                 "rtt_packed_walk": [P] * 4 + [I] * 5 + [P],
                 "rtt_myers_sweep": [P] * 3 + [I] * 4 + [P],
-                "rtt_myers_walk": [P] * 4 + [I] * 4 + [P]}
+                "rtt_myers_walk": [P] * 4 + [I] * 4 + [P],
+                "rtt_nw_sweep_t": [P] * 5 + [I] * 9 + [P]}
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
@@ -212,3 +215,20 @@ class _CtypesKernels:
                 self._check(payload, "payload", torch.uint8,
                             (B, m_cap + 2))]
         self._call(self._lib.rtt_myers_walk, *ptrs, B, m_cap, n_cap, W)
+
+    def nw_sweep_t(self, q, tp, gcp, moves, score, m_cap, n_cap, W, match,
+                   mismatch, gap, span, variant):
+        B = q.shape[0]
+        if not (W % 32 == 0 and 0 < W <= 1024 and m_cap % 128 == 0
+                and 2 * (n_cap - m_cap) + W >= 0):
+            raise ValueError("nw_sweep_t: unsupported geometry")
+        if not 0 <= variant <= 4:
+            raise ValueError(f"nw_sweep_t: unknown variant {variant}")
+        ptrs = [self._check(q, "q", torch.int32, (B, m_cap)),
+                self._check(tp, "tp", torch.int32, (B, n_cap + 2 * W)),
+                self._check(gcp, "gcp", torch.int32, (B, n_cap + 1 + 2 * W)),
+                self._check(moves, "moves", torch.int32,
+                            (B, m_cap // 16, W)),
+                self._check(score, "score", torch.int32, (B,))]
+        self._call(self._lib.rtt_nw_sweep_t, *ptrs, B, m_cap, n_cap, W,
+                   match, mismatch, gap, span, variant)

@@ -26,6 +26,10 @@ int rtt_myers_sweep(const uint8_t* q4, const uint8_t* t4, int32_t* planes,
 int rtt_myers_walk(const int32_t* planes, const int32_t* m, const int32_t* n,
                    uint8_t* payload, int B, int m_cap, int n_cap, int W,
                    cudaStream_t stream);
+int rtt_nw_sweep_t(const int32_t* q, const int32_t* tp, const int32_t* gcp,
+                   int32_t* moves, int32_t* score, int B, int m_cap, int n_cap,
+                   int W, int match, int mismatch, int gap, int span,
+                   int variant, cudaStream_t stream);
 const char* rtt_error_string(int e);
 }
 
@@ -137,6 +141,28 @@ void myers_walk(const at::Tensor& planes, const at::Tensor& m,
                       m_cap, n_cap, W, stream()));
 }
 
+void nw_sweep_t(const at::Tensor& q, const at::Tensor& tp,
+                const at::Tensor& gcp, const at::Tensor& moves,
+                const at::Tensor& score, int64_t m_cap, int64_t n_cap,
+                int64_t W, int64_t match, int64_t mismatch, int64_t gap,
+                int64_t span, int64_t variant) {
+  const int64_t B = q.size(0);
+  check(q, "q", at::kInt, {B, m_cap});
+  check(tp, "tp", at::kInt, {B, n_cap + 2 * W});
+  check(gcp, "gcp", at::kInt, {B, n_cap + 1 + 2 * W});
+  check(moves, "moves", at::kInt, {B, m_cap / 16, W});
+  check(score, "score", at::kInt, {B});
+  TORCH_CHECK(W % 32 == 0 && W > 0 && W <= 1024 && m_cap % 128 == 0 &&
+              2 * (n_cap - m_cap) + W >= 0,
+              "nw_sweep_t: unsupported geometry");
+  TORCH_CHECK(variant >= 0 && variant <= 4, "nw_sweep_t: unknown variant ",
+              variant);
+  done(rtt_nw_sweep_t(q.data_ptr<int32_t>(), tp.data_ptr<int32_t>(),
+                      gcp.data_ptr<int32_t>(), moves.data_ptr<int32_t>(),
+                      score.data_ptr<int32_t>(), B, m_cap, n_cap, W, match,
+                      mismatch, gap, span, variant, stream()));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
@@ -146,4 +172,5 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
   mod.def("packed_walk", &packed_walk);
   mod.def("myers_sweep", &myers_sweep);
   mod.def("myers_walk", &myers_walk);
+  mod.def("nw_sweep_t", &nw_sweep_t);
 }

@@ -32,22 +32,11 @@
 // 32, 46 and 46 at one, two and four lanes, no spills). At (40960, 4096)
 // the codes and bitmask take ~93 KB of shared memory, past the 48 KB
 // default, so the launcher raises the limit.
-#include <climits>
-
-#include "common.cuh"
+#include "sweep_scan.cuh"
 
 namespace {
 
 using namespace rtt;
-
-__device__ __forceinline__ int warp_incl_max(int v, int lane) {
-#pragma unroll
-  for (int s = 1; s < 32; s <<= 1) {
-    int o = __shfl_up_sync(kFull, v, s);
-    if (lane >= s) v = max(v, o);
-  }
-  return v;
-}
 
 // gc[j] = gap * (set bits among deletion-cost columns 0..j-1); 0 for j <= 0
 __device__ int gc_at(const uint32_t* bits, int j, int n_cap, int gap) {
@@ -152,22 +141,7 @@ nw_sweep_kernel(const uint8_t* __restrict__ q4,
       if (!inside[u]) cand = kNeg;
       a[u] = cand - gcj[u];
     }
-#pragma unroll
-    for (int u = 1; u < LPT; ++u) a[u] = max(a[u], a[u - 1]);
-
-    const int incl = warp_incl_max(a[LPT - 1], lane);
-    if (lane == 31) wtot[warp] = incl;
-    __syncthreads();
-    int carry = INT_MIN;
-    for (int w = 0; w < warp; ++w) carry = max(carry, wtot[w]);
-    if (LPT == 1) {
-      a[0] = max(incl, carry);
-    } else {
-      const int excl = __shfl_up_sync(kFull, incl, 1);
-      const int pre = max(lane ? excl : INT_MIN, carry);
-#pragma unroll
-      for (int u = 0; u < LPT; ++u) a[u] = max(a[u], pre);
-    }
+    block_incl_max<LPT>(a, lane, warp, wtot);
 
     const int p = (i - 1) & 15;
 #pragma unroll

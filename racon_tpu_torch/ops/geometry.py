@@ -15,6 +15,8 @@ PAD_CODE = 5              # nw_kernel.py:43; matches itself, rejects bases
 NEG = -(10 ** 5)          # nw_kernel.py:44; forbids pad-vs-real pairing
 SCAN_FILL = 2 * NEG       # fill of the scored sweep's max-plus prefix scan
 PACK = 16                 # query rows per int32 move word (nw_kernel._PACK)
+GROUP = 128               # query rows per grid step of the TPU's transposed
+                          # sweeps (nw_kernel._GROUP)
 NW_CODES = 6              # ACGTN + PAD planes of the Myers Peq mask
 
 # RLE event bytes (nw_kernel.py:1226-1228); 1..16 = diagonal run length
@@ -103,6 +105,17 @@ def sweep_fits(m_cap: int, n_cap: int, w_band: int) -> bool:
     return (w_band % (32 * sweep_lanes(w_band)) == 0 and w_band <= 4096
             and m_cap % 16 == 0 and n_cap % 32 == 0
             and band_dlo(m_cap, n_cap, w_band) <= 0)
+
+
+def sweep_t_fits(m_cap: int, n_cap: int, w_band: int) -> bool:
+    """Shapes the int32 panel sweep (K7, nw_band_batch_t) takes: m_cap a
+    multiple of GROUP (the TPU kernel's grid), W a multiple of 32 up to
+    1024, and n_cap >= m_cap - W/2, i.e. dlo >= -W: below that the first
+    row's window leaves the padded panels, where the TPU kernel has no
+    defined answer. Unlike sweep_fits, a band right of the diagonal
+    (dlo > 0) is taken."""
+    return (m_cap % GROUP == 0 and w_band % 32 == 0 and 0 < w_band <= 1024
+            and band_dlo(m_cap, n_cap, w_band) >= -w_band)
 
 
 def myers_fits(m_cap: int, n_cap: int, w_band: int) -> bool:

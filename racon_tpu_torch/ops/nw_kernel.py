@@ -5,10 +5,10 @@ RACON_TPU_MYERS=0 (port of racon_tpu/ops/nw_kernel.py).
 Each function takes its tensors on one device. On a CUDA tensor it
 launches the hand-written kernel (kernels/csrc/nw_sweep.cu,
 kernels/csrc/rle_walk.cu, kernels/csrc/rows_walk.cu,
-kernels/csrc/packed_walk.cu) and counts the launch; on a CPU tensor it
-runs the plain PyTorch version beside it, which is the readable
-specification and what the CPU tests hold against the JAX package. Any
-other device raises.
+kernels/csrc/packed_walk.cu, kernels/csrc/nw_sweep_t.cu) and counts the
+launch; on a CPU tensor it runs the plain PyTorch version beside it,
+which is the readable specification and what the CPU tests hold against
+the JAX package. Any other device raises.
 
 Layouts (see ops/batch.py for the packed inputs):
   moves (B, m_cap // 16, W) int32  2-bit moves DIAG=0 > UP=1 > LEFT=2,
@@ -26,6 +26,11 @@ Layouts (see ops/batch.py for the packed inputs):
   payload (B, S // 4 + 1) uint8    packed2: 2-bit step codes, 4 per byte,
                                    then the escape flag,
                                    S = walk_steps(m_cap, n_cap, W)
+  q (B, m_cap), tp (B, n_cap + 2W), gcp (B, n_cap + 1 + 2W) int32
+                                   nw_sweep_t's unpacked panels
+                                   (sweep_t_panels): codes, target codes
+                                   with W PAD columns on both sides, and
+                                   the cumulative deletion costs
 """
 
 from __future__ import annotations
@@ -38,10 +43,11 @@ import torch
 from ..kernels import LAUNCHES
 from ..native import bindings
 from .batch import to_device, unpack_bits, unpack_codes
-from .geometry import (NEG, OP_STREAM_SKIP, PAD_CODE, PACK, REC_DIAG,
-                       REC_UP, RLE_LEFT, RLE_SKIP, RLE_UP, SCAN_FILL,
-                       band_dlo, rle_events, rows_payload_width, scan_span,
-                       sweep_fits, sweep_lanes, walk_steps)
+from .geometry import (GROUP, NEG, OP_STREAM_SKIP, PAD_CODE, PACK,
+                       REC_DIAG, REC_UP, RLE_LEFT, RLE_SKIP, RLE_UP,
+                       SCAN_FILL, band_dlo, rle_events, rows_payload_width,
+                       scan_span, sweep_fits, sweep_lanes, sweep_t_fits,
+                       walk_steps)
 
 
 def _device_kind(t: torch.Tensor) -> str:
@@ -85,23 +91,125 @@ def nw_sweep(q4, t4, dcb, *, m_cap, n_cap, w_band, match, mismatch, gap):
 
 def nw_sweep_plain(q4, t4, dcb, *, m_cap, n_cap, w_band, match, mismatch,
                    gap):
-    """Plain PyTorch version of nw_sweep on CPU tensors: a row loop over
-    (B, W) band tiles, the same recurrence as nw_band_batch_ref."""
+    """Plain PyTorch version of nw_sweep on CPU tensors: the packed batch
+    unpacked into K7's panels and sweep_t_rows' row loop, the same
+    recurrence as nw_band_batch_ref (gc integrated here once, not per
+    row)."""
     if q4.device.type != "cpu":
         raise ValueError("nw_sweep_plain takes CPU tensors")
-    B = q4.shape[0]
-    W = w_band
-    dlo = band_dlo(m_cap, n_cap, W)
     q = unpack_codes(q4, m_cap)
     t = unpack_codes(t4, n_cap)
     dc = unpack_bits(dcb, n_cap) * gap
-    # target and prefix costs padded by W on both sides so every row's
-    # band window is a plain slice; gc[j] is frozen beyond n_cap
-    tp = torch.nn.functional.pad(t, (W, W), value=PAD_CODE)
-    gc = torch.cat([torch.zeros((B, 1), dtype=torch.int32),
+    return sweep_t_rows(*sweep_t_panels(q, t, dc, w_band=w_band),
+                        m_cap=m_cap, n_cap=n_cap, w_band=w_band, match=match,
+                        mismatch=mismatch, gap=gap)
+
+
+# ------------------------------------------ int32 panel sweep (K7, K8)
+
+# the ablation variants of the panel sweep (benchmarks/profile_ablate.py);
+# the index is the kernel's `variant` argument
+SWEEP_T_VARIANTS = ("full", "noclosure", "nomoves", "noload", "empty")
+
+
+def sweep_t_panels(q, t, dc, *, w_band):
+    """Codes q (B, m_cap) and t (B, n_cap) and per-column deletion costs
+    dc (B, n_cap), integer tensors on one device -> nw_sweep_t's int32
+    panels (q, tp, gcp): tp (B, n_cap + 2W) the target codes with W PAD
+    columns on both sides, gcp (B, n_cap + 1 + 2W) the prefix sums gc[j]
+    (j = 0..n_cap, gc[0] = 0) with W zeros before and W copies of
+    gc[n_cap] after. The JAX harness's panels (profile_ablate.py:170-182),
+    item-major."""
+    B = q.shape[0]
+    W = w_band
+    tp = torch.nn.functional.pad(t.to(torch.int32), (W, W), value=PAD_CODE)
+    gc = torch.cat([q.new_zeros((B, 1), dtype=torch.int32),
                     torch.cumsum(dc, 1, dtype=torch.int32)], 1)
-    gcp = torch.cat([torch.zeros((B, W), dtype=torch.int32), gc,
+    gcp = torch.cat([q.new_zeros((B, W), dtype=torch.int32), gc,
                      gc[:, -1:].expand(B, W)], 1)
+    return q.to(torch.int32).contiguous(), tp.contiguous(), gcp
+
+
+def check_sweep_t(m_cap, n_cap, w_band, variant="full"):
+    """Raise ValueError, on every device, for a shape the panel sweep does
+    not take (sweep_t_fits) or an unknown variant."""
+    if not sweep_t_fits(m_cap, n_cap, w_band):
+        raise ValueError(f"panel sweep shape ({m_cap}, {n_cap}, {w_band}) "
+                         "unsupported")
+    if variant not in SWEEP_T_VARIANTS:
+        raise ValueError(f"unknown sweep variant {variant!r}")
+
+
+def nw_sweep_t(q, tp, gcp, *, m_cap, n_cap, w_band, match, mismatch, gap):
+    """Panels from sweep_t_panels -> (moves (B, m_cap//16, W) int32,
+    score (B,) int32): the TPU kernel nw_band_batch_t (K7) it replaces,
+    whose (m_cap//16, W, B) moves and (1, B) score are these transposed.
+    Shapes as sweep_t_fits says (a band right of the diagonal too); any B.
+    Launches counted as "nw_sweep_t". Where both take the shape (dlo <=
+    0), equal to nw_sweep on the same items packed."""
+    check_sweep_t(m_cap, n_cap, w_band)
+    if _device_kind(q) == "cpu":
+        return nw_sweep_t_plain(q, tp, gcp, m_cap=m_cap, n_cap=n_cap,
+                                w_band=w_band, match=match,
+                                mismatch=mismatch, gap=gap)
+    out = launch_sweep_t(q, tp, gcp, m_cap=m_cap, n_cap=n_cap,
+                         w_band=w_band, match=match, mismatch=mismatch,
+                         gap=gap, variant="full")
+    LAUNCHES["nw_sweep_t"] += 1
+    return out
+
+
+def nw_sweep_t_plain(q, tp, gcp, *, m_cap, n_cap, w_band, match, mismatch,
+                     gap):
+    """Plain PyTorch version of nw_sweep_t on CPU tensors."""
+    check_sweep_t(m_cap, n_cap, w_band)
+    if q.device.type != "cpu":
+        raise ValueError("nw_sweep_t_plain takes CPU tensors")
+    return sweep_t_rows(q, tp, gcp, m_cap=m_cap, n_cap=n_cap, w_band=w_band,
+                        match=match, mismatch=mismatch, gap=gap)
+
+
+def launch_sweep_t(q, tp, gcp, *, m_cap, n_cap, w_band, match, mismatch,
+                   gap, variant):
+    """Launch kernels/csrc/nw_sweep_t.cu's instantiation for `variant` on
+    CUDA panels; outputs allocated here (moves left unwritten by
+    "nomoves"). Counting is the caller's: nw_sweep_t counts K7, the
+    ablation harness's run_variant K8."""
+    from ..kernels.build import kernels
+
+    B = q.shape[0]
+    moves = torch.empty((B, m_cap // PACK, w_band), dtype=torch.int32,
+                        device=q.device)
+    score = torch.empty((B,), dtype=torch.int32, device=q.device)
+    kernels().nw_sweep_t(q, tp, gcp, moves, score, m_cap, n_cap, w_band,
+                         match, mismatch, gap, scan_span(w_band),
+                         SWEEP_T_VARIANTS.index(variant))
+    return moves, score
+
+
+def sweep_t_rows(q, tp, gcp, *, m_cap, n_cap, w_band, match, mismatch, gap,
+                 variant="full"):
+    """The plain row loop over the panels (CPU tensors) behind
+    nw_sweep_plain, nw_sweep_t_plain and the ablation variants: per row i
+    a (B, W) band tile read at off = i - 1 + W + dlo, the recurrence of
+    nw_band_batch_ref, the max-plus scan as torch.cummax with the TPU
+    scan's fill on lanes k <= scan_span(W) - 2. A variant switches off what
+    profile_ablate.make_kernel does: "noclosure" keeps h = cand, "nomoves"
+    leaves the moves unwritten (torch.empty, never to be compared),
+    "noload" reads every row at off = W + dlo and query row 0, and
+    "empty" gives moves[b, 8g + p, k] = gcp[b, k] + p and score
+    gcp[b, 0] + 8."""
+    B = q.shape[0]
+    W = w_band
+    dlo = band_dlo(m_cap, n_cap, W)
+    steps = GROUP // PACK
+    if variant == "empty":
+        slot = torch.arange(m_cap // PACK, dtype=torch.int32) % steps
+        return (gcp[:, None, :W] + slot[None, :, None],
+                gcp[:, 0] + steps)
+    closure = variant != "noclosure"
+    store = variant != "nomoves"
+    dynload = variant != "noload"
     k = torch.arange(W, dtype=torch.int32)
     fill_lane = k <= scan_span(W) - 2
     j0 = dlo + k
@@ -113,10 +221,9 @@ def nw_sweep_plain(q4, t4, dcb, *, m_cap, n_cap, w_band, match, mismatch,
         jrow = i + dlo + k
         valid = (jrow >= 1) & (jrow <= n_cap)
         inside = valid | (jrow == 0)
-        start = i - 1 + W + dlo
+        start = (i - 1 if dynload else 0) + W + dlo
         t_row = tp[:, start : start + W]
-        gc_here = gcp[:, start + 1 : start + 1 + W]
-        qi = q[:, i - 1 : i]
+        qi = q[:, i - 1 : i] if dynload else q[:, :1]
         sub = torch.where((t_row == PAD_CODE) ^ (qi == PAD_CODE), NEG,
                           torch.where(t_row == qi, match, mismatch))
         diag_c = h + sub
@@ -124,13 +231,19 @@ def nw_sweep_plain(q4, t4, dcb, *, m_cap, n_cap, w_band, match, mismatch,
         cand = torch.maximum(diag_c, up_c)
         cand = torch.where(jrow == 0, i * gap, cand)
         cand = torch.where(inside, cand, NEG)
-        a = torch.cummax(cand - gc_here, dim=1).values
-        a = torch.where(fill_lane, torch.clamp(a, min=SCAN_FILL), a)
-        h = torch.where(inside, a + gc_here, NEG).to(torch.int32)
-        mv = torch.where(h == diag_c, 0, torch.where(h == up_c, 1, 2))
-        mv = torch.where(valid, mv, 3).to(torch.int64)
-        moves[:, (i - 1) // PACK] |= mv << (2 * ((i - 1) % PACK))
+        if closure:
+            gc_here = gcp[:, start + 1 : start + 1 + W]
+            a = torch.cummax(cand - gc_here, dim=1).values
+            a = torch.where(fill_lane, torch.clamp(a, min=SCAN_FILL), a)
+            cand = a + gc_here
+        h = torch.where(inside, cand, NEG).to(torch.int32)
+        if store:
+            mv = torch.where(h == diag_c, 0, torch.where(h == up_c, 1, 2))
+            mv = torch.where(valid, mv, 3).to(torch.int64)
+            moves[:, (i - 1) // PACK] |= mv << (2 * ((i - 1) % PACK))
     score = h[:, n_cap - m_cap - dlo].clone()
+    if not store:
+        return torch.empty((B, m_cap // PACK, W), dtype=torch.int32), score
     return _as_int32_bits(moves), score
 
 

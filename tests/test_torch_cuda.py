@@ -125,6 +125,58 @@ def test_myers_sweep_and_walk_match_plain(gpu, cap, w):
                                                           **geo))
 
 
+def _panels(seed, B, m_cap, n_cap, w):
+    """Panel-sweep inputs: _packed's items (every 7th all PAD, every 5th
+    drifting) with each target moved n_cap - m_cap columns right, so that
+    a band right of the diagonal (n_cap > m_cap + W/2) still follows them,
+    and the same items packed at m_cap when n_cap == m_cap."""
+    q4, t4, dcb, m, n = _packed(seed, B, m_cap, w // 2)
+    unpack = lambda x4: np.stack([x4 & 15, x4 >> 4], -1).reshape(B, -1)
+    t8 = np.full((B, n_cap), 5, np.uint8)
+    t8[:, n_cap - m_cap:] = unpack(t4)
+    t8[:, : n_cap - m_cap] = np.random.default_rng(seed).choice(
+        np.arange(4, dtype=np.uint8), (B, n_cap - m_cap))
+    dc = np.ones((B, n_cap), np.int32)
+    dc[:, n_cap - m_cap:] = np.unpackbits(dcb, axis=1, bitorder="little")
+    panels = nk.sweep_t_panels(torch.from_numpy(unpack(q4)),
+                               torch.from_numpy(t8),
+                               torch.from_numpy(dc * -8), w_band=w)
+    return panels, (q4, t4, dcb, m, n)
+
+
+@pytest.mark.parametrize("m_cap,n_cap,w", [(640, 640, 128),
+                                           (256, 512, 128)])
+def test_panel_sweep_and_ablation_variants_match_plain(gpu, m_cap, n_cap,
+                                                       w):
+    """K7 (nw_sweep_t) and every K8 variant (run_variant) against their
+    plain versions (nomoves: the score only), at the harness's shape and
+    with the band right of the diagonal (dlo = 192); at equal caps K7
+    against K1 (nw_sweep) on the same items packed."""
+    from racon_tpu_torch.benchmarks import profile_ablate as pa
+
+    geo = dict(m_cap=m_cap, n_cap=n_cap, w_band=w)
+    cpu, packed = _panels(m_cap + n_cap, 96, m_cap, n_cap, w)
+    g = [x.to(gpu) for x in cpu]
+    before = dict(LAUNCHES)
+    moves, score = nk.nw_sweep_t(*g, **geo, **pa.SCORES)
+    torch.cuda.synchronize()
+    assert LAUNCHES["nw_sweep_t"] == before["nw_sweep_t"] + 1
+    pm, ps = nk.nw_sweep_t_plain(*cpu, **geo, **pa.SCORES)
+    assert torch.equal(moves.cpu(), pm) and torch.equal(score.cpu(), ps)
+    for v in pa.VARIANTS:
+        vm, vs = pa.run_variant(*g, **geo, variant=v)
+        torch.cuda.synchronize()
+        wm, ws = pa.run_variant_plain(*cpu, **geo, variant=v)
+        assert torch.equal(vs.cpu(), ws), v
+        if v != "nomoves":
+            assert torch.equal(vm.cpu(), wm), v
+    assert LAUNCHES["nw_ablate"] == before["nw_ablate"] + len(pa.VARIANTS)
+    if m_cap == n_cap:
+        p = to_device(*packed, m_cap=m_cap, n_cap=m_cap, device=gpu)
+        km, ks = nk.nw_sweep(p.q4, p.t4, p.dcb, **geo, **pa.SCORES)
+        assert torch.equal(km, moves) and torch.equal(ks, score)
+
+
 def test_kernels_refuse_wrong_inputs(gpu):
     from racon_tpu_torch.kernels.build import kernels
 
