@@ -6,18 +6,21 @@
 Phases (each must pass, or the script exits non-zero):
   1. the card's name and power limit, the torch/CUDA versions, the build
      of the kernels from racon_tpu_torch/kernels/csrc, and ptxas's
-     register and spill counts of the sweep, the rows walk and the panel
-     sweep's five instantiations (a separate `nvcc -Xptxas -v` compile of
-     their sources, run beside the build);
+     register and spill counts of the sweep (warp and block kernels), the
+     rows walk, the panel sweep's five instantiations and the Myers walk
+     (a separate `nvcc -Xptxas -v` compile of their sources, run beside
+     the build);
   2. each kernel against its plain PyTorch version (on the host CPU) at the
      main paths' shapes, byte for byte, with CUDA-event times: the sweep,
      RLE walk and rows walk at (640,128) and (5120,1024) (with the two
      walks' payload bytes and host decode times), the Myers sweep and walk
-     at (2560,512) and (10240,1024), the wide sweep and packed2 walk at
+     at (2560,512), (10240,1024) and the align stage's own chunk there
+     (409 items, the first 8 checked), the wide sweep and packed2 walk at
      (10240,2048) and (10240,4096), the times of one chunk at
-     (10240,2048) and (40960,4096), and the align stage's scored route at
+     (10240,2048) and (40960,4096), the align stage's scored route at
      (10240,1024): sweep, RLE and rows walk at 0/-1/-1 with unit
-     deletion costs;
+     deletion costs, and the warp sweep's other tiers (256,128) B = 4097
+     and (1280,256) B = 1024 with the RLE walk;
   3. the consensus stage on the bench workload (testing.synth
      build_workload, 2048 windows of 500 bp, 12% error, match 5 /
      mismatch -4 / gap -8), four times: the default RLE walk, then
@@ -28,7 +31,9 @@ Phases (each must pass, or the script exits non-zero):
      cuda -m 5 -x -4 -g -8 -t <cores>`, then create_polisher ->
      initialize -> polish) on testing.synth.make_dataset (4.6 Mb, 20x 8 kb
      reads, 12% error, seed 11): identity to the truth must be >= 99.99%,
-     and the sweep, RLE walk and both Myers kernels must have launched;
+     and the warp sweep, RLE walk and both Myers kernels must have
+     launched; then initialize and polish once more, each under
+     torch.profiler: device busy and time per kernel;
   5. the wide-band slice end to end: the same path with `-w 10000` on
      make_dataset(1 Mb, 20x 20 kb reads, 12% error split (0.2, 0.5, 0.3)
      between insertions, deletions and substitutions, seed 11): the wide
@@ -79,6 +84,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 CSRC = "racon_tpu_torch/kernels/csrc/"
 KERNELS = {  # name -> (source, TPU kernel or jnp routine it replaces)
     "nw_sweep": (CSRC + "nw_sweep.cu", "racon_tpu/ops/nw_kernel.py:913"),
+    "nw_sweep_block": (CSRC + "nw_sweep.cu",
+                       "racon_tpu/ops/nw_kernel.py:1073"),
     "rle_walk": (CSRC + "rle_walk.cu", "racon_tpu/ops/nw_kernel.py:1242"),
     "myers_sweep": (CSRC + "myers_sweep.cu",
                     "racon_tpu/ops/myers_kernel.py:500"),
@@ -93,7 +100,8 @@ KERNELS = {  # name -> (source, TPU kernel or jnp routine it replaces)
     "nw_ablate": (CSRC + "nw_sweep_t.cu", "benchmarks/profile_ablate.py:121"),
 }
 # sources whose ptxas report (registers, spills) phase 1 prints
-PTXAS_SOURCES = ("nw_sweep.cu", "rows_walk.cu", "nw_sweep_t.cu")
+PTXAS_SOURCES = ("nw_sweep.cu", "rows_walk.cu", "nw_sweep_t.cu",
+                 "myers_walk.cu")
 
 # Least-time model of one H100 SXM: 3.35 TB/s of HBM (NVIDIA data sheet)
 # and 16.73 Tops/s of INT32 (132 SMs x 64 INT32 lanes x 1.98 GHz boost:
@@ -350,10 +358,11 @@ def phase_kernels(results, threads):
 
     from racon_tpu_torch.ops import myers_kernel as mk
     from racon_tpu_torch.ops import nw_kernel as nk
+    from racon_tpu_torch.native import loader
+    from racon_tpu_torch.ops.align_stage import _chunk_size
     from racon_tpu_torch.ops.batch import to_device
     from racon_tpu_torch.ops.consensus_stage import chunk_size
-
-    from racon_tpu_torch.native import loader
+    from racon_tpu_torch.ops.geometry import myers_walk_launch, sweep_kernel
 
     t0 = time.perf_counter()
     if loader.get() is None:
@@ -369,16 +378,20 @@ def phase_kernels(results, threads):
                          nk.packed_walk_plain)}
 
     def shape(name, cap, W, B, sc, **numbers):
+        """One measured shape; the first of each kernel also fills its
+        contract keys."""
         results[name]["shapes"].append(dict(
             shape=[cap, W, B], scores="align" if sc is align else "consensus",
             **numbers))
+        if results[name]["ms"] is None:
+            results[name].update(numbers)
 
-    def scored(cap, W, B, drift, fmts, rng, record, sc):
+    def scored(cap, W, B, drift, fmts, rng, sc):
         """Sweep and walks at one shape against their plain versions, with
         the consensus stage's scores and deletion columns or the align
         stage's (0/-1/-1, unit deletion costs everywhere)."""
         geo = dict(m_cap=cap, n_cap=cap, w_band=W)
-        sweep_name = "nw_sweep" if W <= 1024 else "nw_sweep_wide"
+        sweep_name = sweep_kernel(W)
         q4, t4, dcb, m, n = make_items(rng, B, cap, W, sc["gap"], drift)
         if sc is align:
             dcb[:] = 0xFF
@@ -401,8 +414,6 @@ def phase_kernels(results, threads):
         numbers = dict(max_abs_err=err, ms=sweep, plain_ms=sweep_plain,
                        bound_ms=bs, bound_by=bys)
         shape(sweep_name, cap, W, B, sc, **numbers)
-        if record:
-            results[sweep_name].update(numbers)
         for fmt in fmts:
             walk_name, walk, plain_walk = walks[fmt]
             payload = walk(moves, gpu.m, gpu.n, **geo)
@@ -426,8 +437,6 @@ def phase_kernels(results, threads):
             numbers = dict(max_abs_err=werr, ms=wms, plain_ms=walk_plain,
                            bound_ms=bw, bound_by=byw)
             shape(walk_name, cap, W, B, sc, **numbers)
-            if record:
-                results[walk_name].update(numbers)
 
     def chunk(cap, W, drift, rng, check_item):
         """One launch at a stage's chunk size (the 1 GiB move budget);
@@ -474,36 +483,46 @@ def phase_kernels(results, threads):
         shape("packed_walk", cap, W, Bc, sc, max_abs_err=werr, ms=w_big,
               bound_ms=bw, bound_by=byw)
 
-    scored(640, 128, 4096, None, ("rle", "rows"), rng, True, consensus)
-    scored(5120, 1024, 8, None, ("rle", "rows"), rng, False, consensus)
-    scored(10240, 2048, 16, 700, ("packed2",), rng, True, consensus)
+    scored(640, 128, 4096, None, ("rle", "rows"), rng, consensus)
+    scored(5120, 1024, 8, None, ("rle", "rows"), rng, consensus)
+    scored(10240, 2048, 16, 700, ("packed2",), rng, consensus)
     chunk(10240, 2048, 700, rng, False)
-    for cap, W, B in ((2560, 512, 1024), (10240, 1024, 8)):
+
+    def myers(cap, W, B, rng, check):
+        """Both Myers kernels at one shape; the first `check` items (all
+        when None) against the plain versions."""
         geo = dict(m_cap=cap, n_cap=cap, w_band=W)
         q4, t4, _, m, n = make_items(rng, B, cap, W, -1)
         gpu = to_device(q4, t4, None, m, n, m_cap=cap, n_cap=cap,
                         device="cuda")
-        cpu = to_device(q4, t4, None, m, n, m_cap=cap, n_cap=cap,
-                        device="cpu")
+        c = B if check is None else check
+        cpu = to_device(q4[:c], t4[:c], None, m[:c], n[:c], m_cap=cap,
+                        n_cap=cap, device="cpu")
         planes = mk.myers_sweep(gpu.q4, gpu.t4, **geo)
         payload = mk.myers_walk(planes, gpu.m, gpu.n, **geo)
         pl, sweep_plain = host_ms(lambda: mk.myers_sweep_plain(
             cpu.q4, cpu.t4, **geo))
         pp, walk_plain = host_ms(lambda: mk.myers_walk_plain(
             pl, cpu.m, cpu.n, **geo))
-        err = compare("myers_sweep planes", planes, pl)
-        werr = compare("myers_walk payload", payload, pp)
+        err = compare("myers_sweep planes", planes[:c], pl)
+        werr = compare("myers_walk payload", payload[:c], pp)
         sweep = cuda_ms(lambda: mk.myers_sweep(gpu.q4, gpu.t4, **geo))
         wms = cuda_ms(lambda: mk.myers_walk(planes, gpu.m, gpu.n, **geo))
-        esc = int(pp[:, -1].sum())
-        log(f"[kernels] myers ({cap},{W}) B={B}: byte-equal, {esc} escapes; "
-            f"sweep {sweep:.3f} ms (plain CPU {sweep_plain:.1f} ms), walk "
-            f"{wms:.3f} ms (plain CPU {walk_plain:.1f} ms)")
+        esc = int(payload[:, -1].sum())
+        which = "" if check is None else f" (first {c} items checked)"
+        log(f"[kernels] myers ({cap},{W}) B={B}: byte-equal{which}, {esc} "
+            f"escapes; sweep {sweep:.3f} ms (plain CPU {sweep_plain:.1f} "
+            f"ms), walk {wms:.3f} ms (plain CPU {walk_plain:.1f} ms)")
         nbytes = B * (cap // 2 + cap // 2) + B * cap * 2 * (W // 32) * 4
         bs, bys = bound(nbytes, B * cap * (W // 32) * OPS_MYERS_WORD)
-        # the walk reads two plane words per query row it passes
+        # the walk needs two plane words per query row it passes; reading
+        # whole rows (2 W/32 words each) moves the planes once
         rows = int(np.asarray(m).sum())
         bw, byw = bound(8 * rows + B * (8 + cap + 2), rows * OPS_WALK_STEP)
+        rows_ms = 1e3 * (rows * 2 * (W // 32) * 4) / HBM_BYTES_PER_S
+        log(f"[kernels] myers_walk ({cap},{W}) B={B}: "
+            f"{myers_walk_launch(B, W)[0]} blocks; bound {bw:.5f} ms by "
+            f"{byw}; whole rows of both planes {rows_ms:.3f} ms of HBM")
         for name, numbers in (
                 ("myers_sweep", dict(max_abs_err=err, ms=sweep,
                                      plain_ms=sweep_plain, bound_ms=bs,
@@ -511,16 +530,29 @@ def phase_kernels(results, threads):
                 ("myers_walk", dict(max_abs_err=werr, ms=wms,
                                     plain_ms=walk_plain, bound_ms=bw,
                                     bound_by=byw))):
+            if check is not None:
+                numbers["plain_items"] = c
             shape(name, cap, W, B, align, **numbers)
-            if cap == 2560:
-                results[name].update(numbers)
+        results["myers_walk"]["shapes"][-1].update(
+            whole_rows_ms=rows_ms, blocks=myers_walk_launch(B, W)[0])
+
+    myers(2560, 512, 1024, rng, None)
+    myers(10240, 1024, 8, rng, None)
+    # the align stage's own chunk at its main tier (29 such launches per
+    # initialize() at 4.6 Mb)
+    myers(10240, 1024, _chunk_size(10240, 1024), rng, 8)
     # the align stage's scored route (RACON_TPU_MYERS=0) at a W <= 1024
     # tier and at W = 4096, on its own seed so that the shapes above keep
     # their inputs
     rng4 = np.random.default_rng(4096)
-    scored(10240, 4096, 4, 1500, ("packed2",), rng4, False, align)
+    scored(10240, 4096, 4, 1500, ("packed2",), rng4, align)
     chunk(40960, 4096, 1500, rng4, True)
-    scored(10240, 1024, 4, None, ("rle", "rows"), rng4, False, align)
+    scored(10240, 1024, 4, None, ("rle", "rows"), rng4, align)
+    # the warp sweep's other consensus tiers, on a seed of their own: a
+    # ragged last block (B % 4 == 1) and W = 256 (eight lanes a thread)
+    rng1 = np.random.default_rng(256)
+    scored(256, 128, 4097, None, ("rle",), rng1, consensus)
+    scored(1280, 256, 1024, None, ("rle",), rng1, consensus)
 
 
 def phase_bench(threads, results):
@@ -629,6 +661,63 @@ def _identity(tag, what, seq, true):
     return ident
 
 
+def _device_profile(fn):
+    """fn() under torch.profiler (CPU and CUDA activity): (wall s, device
+    busy s as the union of the device's kernel and copy intervals,
+    {kernel or copy name: [ms, count]} in descending ms)."""
+    import re
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        k = re.search(r"(\w+_kernel)(<[^>]*>)?", e.name)
+        name = k.group(0) if k else e.name[:40]
+        ms_n = by_name.setdefault(name, [0.0, 0])
+        ms_n[0] += (e.time_range.end - e.time_range.start) / 1e3
+        ms_n[1] += 1
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return wall, busy / 1e6, dict(sorted(by_name.items(),
+                                         key=lambda kv: -kv[1][0]))
+
+
+def _profile_polish(wd, argv):
+    """create_polisher -> initialize -> polish once more in this process,
+    each of the two calls under torch.profiler: where the device time of
+    the main path goes."""
+    from racon_tpu_torch import cli
+    from racon_tpu_torch.polisher import create_polisher
+
+    args = cli.parser().parse_args(
+        [*argv, *(os.path.join(wd, f) for f in
+                  ("reads.fasta", "ovl.paf", "draft.fasta"))])
+    cfg = cli.make_config(args)
+    with contextlib.redirect_stderr(io.StringIO()):
+        p = create_polisher(*args.inputs, cfg)
+        for call, fn in (("initialize", p.initialize),
+                         ("polish", lambda: p.polish(True))):
+            wall, busy, by_name = _device_profile(fn)
+            top = ", ".join(f"{k} {v[0]:.1f} ms / {v[1]}"
+                            for k, v in list(by_name.items())[:6])
+            log(f"[profile] {call}() {wall:.3f} s (profiled), device busy "
+                f"{busy:.3f} s ({100 * busy / wall:.1f} %): {top}")
+
+
 POLISH_ARGV = ["--backend", "cuda", "-m", "5", "-x", "-4", "-g", "-8"]
 
 
@@ -652,8 +741,9 @@ def phase_polish(wd, genome_mb, threads, results):
     if missing:
         raise SmokeFailure(f"kernels never launched on the default path: "
                            f"{missing}")
-    for k in mine:
+    for k in (*mine, "nw_sweep_block"):
         results[k]["launches"] = counts[k]
+    _profile_polish(wd, [*POLISH_ARGV, "-t", str(threads)])
 
 
 WIDE_ARGV = ["--backend", "cuda", "-w", "10000", "-m", "5", "-x", "-4",
@@ -787,7 +877,7 @@ def phase_align(datasets, threads, results):
         TorchAlignStage.breaking_points = real
         for k in scored_env:
             os.environ.pop(k, None)
-    need = ("nw_sweep", "rows_walk", "nw_sweep_wide", "packed_walk")
+    need = ("nw_sweep_block", "rows_walk", "nw_sweep_wide", "packed_walk")
     missing = [k for k in need if not launched["scored"][k]]
     if (missing or launched["scored"]["myers_sweep"]
             or not launched["myers"]["myers_sweep"]):
@@ -798,6 +888,11 @@ def phase_align(datasets, threads, results):
         raise SmokeFailure("no item in a W = 4096 tier")
     log(f"[align] scored route: {wide} items in W = 4096 tiers; launches "
         f"{launched['scored']}")
+    # the block sweep's launches: the default path's where its consensus
+    # tiers above W = 256 ran, else the scored align route's
+    if not results["nw_sweep_block"]["launches"]:
+        results["nw_sweep_block"]["launches"] = \
+            launched["scored"]["nw_sweep_block"]
 
 
 def _sweep_t_bound(B, m_cap, n_cap, W, variant):
@@ -888,10 +983,12 @@ def phase_ablate(results):
     results["nw_sweep"]["shapes"].append(dict(
         shape=[cap, W, B], scores="ablation harness", ms=k1_ms, bound_ms=bs,
         bound_by=bys))
+    k7_ms = lines["nwonly"][0]
     log(f"[ablate] K7 byte-equal to K1 (nw_sweep) on all {B} items packed; "
         f"K1 on them {k1_ms:.3f} ms (median of 5, bound {bs:.5f} ms by "
-        f"{bys}) against K7's {lines['nwonly'][0]:.3f} ms; the fused line's "
-        f"{fmt} payload equals the walk-only line's")
+        f"{bys}) against K7's {k7_ms:.3f} ms: K1 {k7_ms / k1_ms:.2f}x "
+        f"faster; the fused line's {fmt} payload equals the walk-only "
+        f"line's")
 
 
 def main() -> int:

@@ -1,6 +1,7 @@
-// The scored sweeps' inclusive max-plus prefix scan over a block's band
-// lanes, shared by nw_sweep.cu (K1/K2/K5) and nw_sweep_t.cu (K7/K8) so
-// that the ablation of K7 times K1's own scan.
+// The scored sweeps' inclusive max-plus prefix scans over the band lanes:
+// the block scan of nw_sweep.cu's block kernel (K2/K5) and nw_sweep_t.cu
+// (K7/K8), so that the ablation of K7 times the block design of K1, and
+// the warp-only scan of nw_sweep.cu's warp kernel (K1, W <= 256).
 #pragma once
 
 #include <climits>
@@ -41,6 +42,29 @@ __device__ __forceinline__ void block_incl_max(int (&a)[LPT], int lane,
     const int pre = max(lane ? excl : INT_MIN, carry);
 #pragma unroll
     for (int u = 0; u < LPT; ++u) a[u] = max(a[u], pre);
+  }
+}
+
+// In place, a[u] becomes the max of a over every band lane at or below
+// lane LPT*lane + u of the warp (the whole band lies in one warp): a
+// serial max over the thread's lanes, the warp shuffle scan of the thread
+// totals, then the exclusive prefix by one more shuffle. No shared memory
+// and no barrier. Every lane of the warp must call it.
+template <int LPT>
+__device__ __forceinline__ void warp_lanes_incl_max(int (&a)[LPT],
+                                                    int lane) {
+#pragma unroll
+  for (int u = 1; u < LPT; ++u) a[u] = max(a[u], a[u - 1]);
+
+  const int incl = warp_incl_max(a[LPT - 1], lane);
+  if (LPT == 1) {
+    a[0] = incl;
+  } else {
+    const int excl = __shfl_up_sync(kFull, incl, 1);
+    if (lane) {
+#pragma unroll
+      for (int u = 0; u < LPT; ++u) a[u] = max(a[u], excl);
+    }
   }
 }
 

@@ -89,11 +89,62 @@ def peq_words(n_cap: int, w_band: int) -> int:
     return (n_cap + 2 * guard_bits(w_band)) // 32
 
 
+# Launch geometry of the two kernels built around one warp per item; the
+# constants mirror kSweepWarps (kernels/csrc/nw_sweep.cu) and kWalkWarps,
+# kWalkRows (kernels/csrc/myers_walk.cu).
+SWEEP_WARP_MAX_W = 256    # widest band the warp-per-item sweep takes
+SWEEP_WARPS = 4           # items (warps) per block of the warp sweep
+MYERS_WALK_WARPS = 2      # items (warps) per block of the Myers walk
+MYERS_WALK_ROWS = 16      # query rows per cp.async group of the walk
+
+
 def sweep_lanes(w_band: int) -> int:
-    """Band lanes each thread of the sweep kernel owns: one up to W = 1024,
-    two up to 2048, four up to 4096, so a block never exceeds 1024
-    threads."""
+    """Band lanes each thread of the sweep owns outside the warp kernel:
+    one up to W = 1024, two up to 2048, four up to 4096, so a block never
+    exceeds 1024 threads. (The warp kernel, W <= 256, gives each thread
+    W / 32 lanes.)"""
     return 1 if w_band <= 1024 else (2 if w_band <= 2048 else 4)
+
+
+def sweep_kernel(w_band: int) -> str:
+    """Which sweep kernel a band width launches, by its launch counter:
+    "nw_sweep" (the warp kernel, K1's tiers), "nw_sweep_block" (one block
+    per item, one lane per thread: K2's tiers and the align stage's scored
+    route up to W = 1024) or "nw_sweep_wide" (two or four lanes per
+    thread: K5)."""
+    if w_band <= SWEEP_WARP_MAX_W:
+        return "nw_sweep"
+    return "nw_sweep_block" if w_band <= 1024 else "nw_sweep_wide"
+
+
+def sweep_launch(B: int, m_cap: int, n_cap: int,
+                 w_band: int) -> tuple[int, int, int]:
+    """(blocks, threads per block, shared bytes per block) of one sweep
+    launch, as rtt_nw_sweep and rtt_nw_sweep_smem compute them: the warp
+    kernel holds SWEEP_WARPS items a block, each warp its item's code bytes
+    (m_cap + n_cap); the block kernel one item, with its lane exchange,
+    warp totals, deletion bitmask and code bytes."""
+    if sweep_kernel(w_band) == "nw_sweep":
+        return (-(-B // SWEEP_WARPS), 32 * SWEEP_WARPS,
+                SWEEP_WARPS * (m_cap + n_cap))
+    threads = w_band // sweep_lanes(w_band)
+    return B, threads, (2 * threads + 32 + n_cap // 32) * 4 + m_cap + n_cap
+
+
+def myers_walk_ring(w_band: int) -> int:
+    """Query rows in each warp's shared-memory ring of the Myers walk (both
+    planes, 2 W/32 words a row): 64 up to W = 1024, 32 above, so that a
+    warp streams up to three (or one) groups of MYERS_WALK_ROWS rows ahead
+    of the row it walks in 16 KB (32 KB at W = 4096)."""
+    return 64 if w_band <= 1024 else 32
+
+
+def myers_walk_launch(B: int, w_band: int) -> tuple[int, int, int]:
+    """(blocks, threads per block, shared bytes per block) of one Myers
+    walk launch: MYERS_WALK_WARPS items a block, one ring per warp."""
+    return (-(-B // MYERS_WALK_WARPS), 32 * MYERS_WALK_WARPS,
+            MYERS_WALK_WARPS * myers_walk_ring(w_band) * 2 * (w_band // 32)
+            * 4)
 
 
 def sweep_fits(m_cap: int, n_cap: int, w_band: int) -> bool:

@@ -46,8 +46,8 @@ from .batch import to_device, unpack_bits, unpack_codes
 from .geometry import (GROUP, NEG, OP_STREAM_SKIP, PAD_CODE, PACK,
                        REC_DIAG, REC_UP, RLE_LEFT, RLE_SKIP, RLE_UP,
                        SCAN_FILL, band_dlo, rle_events, rows_payload_width,
-                       scan_span, sweep_fits, sweep_lanes, sweep_t_fits,
-                       walk_steps)
+                       scan_span, sweep_fits, sweep_kernel, sweep_lanes,
+                       sweep_t_fits, walk_steps)
 
 
 def _device_kind(t: torch.Tensor) -> str:
@@ -67,9 +67,11 @@ def _as_int32_bits(x: torch.Tensor) -> torch.Tensor:
 def nw_sweep(q4, t4, dcb, *, m_cap, n_cap, w_band, match, mismatch, gap):
     """q4 (B, m_cap//2), t4 (B, n_cap//2), dcb (B, n_cap//8) uint8 ->
     (moves (B, m_cap//16, W) int32, score (B,) int32). Replaces the TPU
-    kernels nw_band_batch_t8 / nw_band_batch_t8big (W <= 1024, launches
-    counted as "nw_sweep") and nw_band_batch (W = 2048 and 4096, two or
-    four band lanes per thread, counted as "nw_sweep_wide")."""
+    kernels nw_band_batch_t8 (W <= 256: one warp per item, launches
+    counted as "nw_sweep"), nw_band_batch_t8big (W = 288 .. 1024: one
+    block per item, "nw_sweep_block") and nw_band_batch (W = 2048 and
+    4096, two or four band lanes per thread, "nw_sweep_wide"); see
+    geometry.sweep_kernel."""
     if not sweep_fits(m_cap, n_cap, w_band):
         raise ValueError(f"sweep shape ({m_cap}, {n_cap}, {w_band}) "
                          "unsupported")
@@ -85,7 +87,7 @@ def nw_sweep(q4, t4, dcb, *, m_cap, n_cap, w_band, match, mismatch, gap):
     score = torch.empty((B,), dtype=torch.int32, device=q4.device)
     kernels().nw_sweep(q4, t4, dcb, moves, score, m_cap, n_cap, w_band,
                        match, mismatch, gap, scan_span(w_band))
-    LAUNCHES["nw_sweep" if sweep_lanes(w_band) == 1 else "nw_sweep_wide"] += 1
+    LAUNCHES[sweep_kernel(w_band)] += 1
     return moves, score
 
 

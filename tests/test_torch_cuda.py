@@ -18,7 +18,7 @@ from racon_tpu_torch.kernels import LAUNCHES
 from racon_tpu_torch.ops import myers_kernel as mk
 from racon_tpu_torch.ops import nw_kernel as nk
 from racon_tpu_torch.ops.batch import to_device
-from racon_tpu_torch.ops.geometry import encode
+from racon_tpu_torch.ops.geometry import encode, sweep_kernel
 
 pytestmark = pytest.mark.cuda
 ACGT = np.frombuffer(b"ACGT", np.uint8)
@@ -52,18 +52,24 @@ def _packed(seed, B, cap, drift):
             np.packbits(dc, axis=1, bitorder="little"), m, n)
 
 
-@pytest.mark.parametrize("cap,w", [(256, 128), (640, 128), (1280, 512)])
-def test_sweep_and_rle_walk_match_plain(gpu, cap, w):
-    q4, t4, dcb, m, n = _packed(cap + w, 96, cap, w)
+@pytest.mark.parametrize("cap,w,B", [(256, 128, 4097), (640, 128, 4097),
+                                     (1280, 256, 4097), (1280, 512, 96)])
+def test_sweep_and_rle_walk_match_plain(gpu, cap, w, B):
+    """K1's tiers on the warp kernel (W <= 256; B = 4097 leaves the last
+    block one warp), and W = 512 on the block kernel, with _packed's
+    all-PAD and out-of-band items."""
+    q4, t4, dcb, m, n = _packed(cap + w, B, cap, w)
     geo = dict(m_cap=cap, n_cap=cap, w_band=w)
     sc = dict(match=5, mismatch=-4, gap=-8)
     g = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap, device=gpu)
     c = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap, device="cpu")
+    sweep = sweep_kernel(w)
+    assert sweep == ("nw_sweep" if w <= 256 else "nw_sweep_block")
     before = dict(LAUNCHES)
     moves, score = nk.nw_sweep(g.q4, g.t4, g.dcb, **geo, **sc)
     payload = nk.rle_walk(moves, g.m, g.n, **geo)
     torch.cuda.synchronize()
-    assert LAUNCHES["nw_sweep"] == before["nw_sweep"] + 1
+    assert LAUNCHES[sweep] == before[sweep] + 1
     assert LAUNCHES["rle_walk"] == before["rle_walk"] + 1
     pm, ps = nk.nw_sweep_plain(c.q4, c.t4, c.dcb, **geo, **sc)
     assert torch.equal(moves.cpu(), pm) and torch.equal(score.cpu(), ps)
@@ -98,7 +104,7 @@ def test_sweep_and_packed_walk_match_plain(gpu, cap, w):
     sc = dict(match=5, mismatch=-4, gap=-8)
     g = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap, device=gpu)
     c = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap, device="cpu")
-    sweep = "nw_sweep_wide" if w > 1024 else "nw_sweep"
+    sweep = sweep_kernel(w)
     before = dict(LAUNCHES)
     moves, score = nk.nw_sweep(g.q4, g.t4, g.dcb, **geo, **sc)
     payload = nk.packed_walk(moves, g.m, g.n, **geo)
@@ -111,18 +117,64 @@ def test_sweep_and_packed_walk_match_plain(gpu, cap, w):
                        nk.packed_walk_plain(pm, c.m, c.n, **geo))
 
 
-@pytest.mark.parametrize("cap,w", [(512, 64), (2560, 512), (10240, 4096)])
-def test_myers_sweep_and_walk_match_plain(gpu, cap, w):
-    q4, t4, _, m, n = _packed(cap + w, 8, cap, w)
+@pytest.mark.parametrize("cap,w,B,check", [(512, 64, 9, 9),
+                                           (2560, 512, 9, 9),
+                                           (10240, 4096, 9, 9),
+                                           (10240, 1024, 409, 8)])
+def test_myers_sweep_and_walk_match_plain(gpu, cap, w, B, check):
+    """Ragged batches (the walk's last block runs one warp), and the
+    align stage's chunk at (10240, 1024), 409 items, whose first `check`
+    items are held against the plain versions."""
+    q4, t4, _, m, n = _packed(cap + w, B, cap, w)
     geo = dict(m_cap=cap, n_cap=cap, w_band=w)
     g = to_device(q4, t4, None, m, n, m_cap=cap, n_cap=cap, device=gpu)
-    c = to_device(q4, t4, None, m, n, m_cap=cap, n_cap=cap, device="cpu")
+    c = to_device(q4[:check], t4[:check], None, m[:check], n[:check],
+                  m_cap=cap, n_cap=cap, device="cpu")
+    before = LAUNCHES["myers_walk"]
     planes = mk.myers_sweep(g.q4, g.t4, **geo)
     payload = mk.myers_walk(planes, g.m, g.n, **geo)
+    torch.cuda.synchronize()
+    assert LAUNCHES["myers_walk"] == before + 1
     pl = mk.myers_sweep_plain(c.q4, c.t4, **geo)
-    assert torch.equal(planes.cpu(), pl)
-    assert torch.equal(payload.cpu(), mk.myers_walk_plain(pl, c.m, c.n,
-                                                          **geo))
+    assert torch.equal(planes[:check].cpu(), pl)
+    assert torch.equal(payload[:check].cpu(),
+                       mk.myers_walk_plain(pl, c.m, c.n, **geo))
+
+
+def test_myers_walk_long_deletion_runs(gpu):
+    """Rows whose deletion run exits one or two words below kvec's (the
+    walk's out-of-line step) or runs past 63 lanes (escape): A/C queries,
+    targets with G/T blocks of 0-12 and 33-70 bases, at W = 256, 1024
+    and 4096."""
+    rng = np.random.default_rng(67)
+    for cap, w in ((256, 256), (1024, 1024), (1024, 4096)):
+        pairs = []
+        for run in (33, 47, 52, 58, 63, 64, 70):
+            for early in (0, 6, 12):
+                q = rng.choice(ACGT[:2], int(rng.integers(120, 160)))
+                pos = int(rng.integers(40, len(q) - 10))
+                t = np.insert(q, pos, rng.choice(ACGT[2:], run))
+                pairs.append((q, np.insert(t, 20, rng.choice(ACGT[2:],
+                                                              early))))
+        B = len(pairs)
+        q8 = np.full((B, cap), 5, np.uint8)
+        t8 = np.full((B, cap), 5, np.uint8)
+        m = np.array([len(q) for q, _ in pairs], np.int32)
+        n = np.array([len(t) for _, t in pairs], np.int32)
+        for b, (q, t) in enumerate(pairs):
+            q8[b, : len(q)] = encode(q)
+            t8[b, : len(t)] = encode(t)
+        q4 = q8[:, 0::2] | (q8[:, 1::2] << 4)
+        t4 = t8[:, 0::2] | (t8[:, 1::2] << 4)
+        geo = dict(m_cap=cap, n_cap=cap, w_band=w)
+        g = to_device(q4, t4, None, m, n, m_cap=cap, n_cap=cap, device=gpu)
+        c = to_device(q4, t4, None, m, n, m_cap=cap, n_cap=cap, device="cpu")
+        planes = mk.myers_sweep(g.q4, g.t4, **geo)
+        payload = mk.myers_walk(planes, g.m, g.n, **geo)
+        torch.cuda.synchronize()
+        want = mk.myers_walk_plain(planes.cpu(), c.m, c.n, **geo)
+        assert torch.equal(payload.cpu(), want), (cap, w)
+        assert int(want[:, :cap].max()) >> 2 == 63
 
 
 def _panels(seed, B, m_cap, n_cap, w):
