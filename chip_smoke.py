@@ -6,10 +6,10 @@
 Phases (each must pass, or the script exits non-zero):
   1. the card's name and power limit, the torch/CUDA versions, the build
      of the kernels from racon_tpu_torch/kernels/csrc, and ptxas's
-     register and spill counts of the sweep (warp and block kernels), the
-     rows walk, the panel sweep's five instantiations and the Myers walk
-     (a separate `nvcc -Xptxas -v` compile of their sources, run beside
-     the build);
+     register and spill counts of the sweep (warp and block kernels), its
+     int16 form (nw_sweep16.cu), the rows walk, the panel sweep's five
+     instantiations and the Myers walk (a separate `nvcc -Xptxas -v`
+     compile of their sources, run beside the build);
   2. each kernel against its plain PyTorch version (on the host CPU) at the
      main paths' shapes, byte for byte, with CUDA-event times: the sweep,
      RLE walk and rows walk at (640,128) and (5120,1024) (with the two
@@ -20,20 +20,27 @@ Phases (each must pass, or the script exits non-zero):
      (10240,2048) and (40960,4096), the align stage's scored route at
      (10240,1024): sweep, RLE and rows walk at 0/-1/-1 with unit
      deletion costs, and the warp sweep's other tiers (256,128) B = 4097
-     and (1280,256) B = 1024 with the RLE walk;
+     and (1280,256) B = 1024 with the RLE walk; then under
+     RACON_TPU_DP16=1 the int16 sweeps (K1-16 at (640,128) B = 4096 and
+     (256,128) B = 4097, K2-16 at (2560,512) B = 1024 with the align
+     scores) against the int32 kernels on every item and their plain
+     versions, timed in turns with them (and K1-16's other warp layout);
   3. the consensus stage on the bench workload (testing.synth
      build_workload, 2048 windows of 500 bp, 12% error, match 5 /
      mismatch -4 / gap -8), four times: the default RLE walk, then
-     RACON_TPU_WALK=rows twice, then the default again; edit distance to
-     the truth must be exactly 91 each time, and the rows runs must
-     launch the rows walk and not the RLE walk;
+     RACON_TPU_WALK=rows twice, then the default again, then once more
+     under RACON_TPU_DP16=1; edit distance to the truth must be exactly 91
+     each time, the rows runs must launch the rows walk and not the RLE
+     walk, and the int16 run the int16 sweep;
   4. the default polish path end to end (the CLI's arguments `--backend
      cuda -m 5 -x -4 -g -8 -t <cores>`, then create_polisher ->
      initialize -> polish) on testing.synth.make_dataset (4.6 Mb, 20x 8 kb
      reads, 12% error, seed 11): identity to the truth must be >= 99.99%,
      and the warp sweep, RLE walk and both Myers kernels must have
-     launched; then initialize and polish once more, each under
-     torch.profiler: device busy and time per kernel;
+     launched; then the same under RACON_TPU_DP16=1, whose FASTA must be
+     byte-equal and which must launch the int16 sweep; then initialize
+     and polish once more, each under torch.profiler, with and without
+     RACON_TPU_DP16=1: device busy and time per kernel;
   5. the wide-band slice end to end: the same path with `-w 10000` on
      make_dataset(1 Mb, 20x 20 kb reads, 12% error split (0.2, 0.5, 0.3)
      between insertions, deletions and substitutions, seed 11): the wide
@@ -43,12 +50,15 @@ Phases (each must pass, or the script exits non-zero):
      this phase alone takes about 460 s, most of it the host realigning
      band escapes, and the whole script then passes 10 minutes;
   6. the scored align route: create_polisher -> initialize on the
-     datasets of phases 4 and 5, each twice, by default (Myers) and under
-     RACON_TPU_MYERS=0 RACON_TPU_WALK=rows; the scored runs must launch
-     the sweep and the rows walk (phase 4's 8 kb overlaps, W <= 1024
-     tiers) and the wide sweep and the packed walk (phase 5's drifting
-     20 kb overlaps, W = 4096); no overlap may go to the host in either
-     run, and every overlap's breaking points must equal the Myers run's;
+     datasets of phases 4 and 5 and a 0.5 Mb one of 2 kb reads, by
+     default (Myers) and under RACON_TPU_MYERS=0 RACON_TPU_WALK=rows, the
+     two w = 500 datasets once more with RACON_TPU_DP16=1; the scored runs
+     must launch the sweep and the rows walk (phase 4's 8 kb overlaps,
+     W <= 1024 tiers), the wide sweep and the packed walk (phase 5's
+     drifting 20 kb overlaps, W = 4096), and under RACON_TPU_DP16=1 the
+     int16 block sweep (the 2 kb reads' (2560,512) tier); no overlap may
+     go to the host in any run, and every overlap's breaking points must
+     equal the Myers run's;
   7. the ablation harness (racon_tpu_torch.benchmarks.profile_ablate) at
      the JAX harness's default (B 8192, cap 640, W 128; its own data, seed
      0): every line's ms, each panel-sweep variant's bound; then K7
@@ -98,10 +108,14 @@ KERNELS = {  # name -> (source, TPU kernel or jnp routine it replaces)
     "rows_walk": (CSRC + "rows_walk.cu", "racon_tpu/ops/nw_kernel.py:1990"),
     "nw_sweep_t": (CSRC + "nw_sweep_t.cu", "racon_tpu/ops/nw_kernel.py:737"),
     "nw_ablate": (CSRC + "nw_sweep_t.cu", "benchmarks/profile_ablate.py:121"),
+    # the int16 forms (RACON_TPU_DP16=1) of K1 and K2
+    "nw_sweep16": (CSRC + "nw_sweep16.cu", "racon_tpu/ops/nw_kernel.py:913"),
+    "nw_sweep_block16": (CSRC + "nw_sweep16.cu",
+                         "racon_tpu/ops/nw_kernel.py:1073"),
 }
 # sources whose ptxas report (registers, spills) phase 1 prints
-PTXAS_SOURCES = ("nw_sweep.cu", "rows_walk.cu", "nw_sweep_t.cu",
-                 "myers_walk.cu")
+PTXAS_SOURCES = ("nw_sweep.cu", "nw_sweep16.cu", "rows_walk.cu",
+                 "nw_sweep_t.cu", "myers_walk.cu")
 
 # Least-time model of one H100 SXM: 3.35 TB/s of HBM (NVIDIA data sheet)
 # and 16.73 Tops/s of INT32 (132 SMs x 64 INT32 lanes x 1.98 GHz boost:
@@ -114,6 +128,8 @@ INT32_OPS_PER_S = 132 * 64 * 1.98e9
 OPS_SWEEP_CELL = 15
 OPS_MYERS_WORD = 20
 OPS_WALK_STEP = 12
+CELLS_PER_OP16 = 2   # the int16 sweeps: two cells per 16x2 instruction
+PTXAS = {}           # kernel (with its template arguments) -> registers
 
 
 class SmokeFailure(RuntimeError):
@@ -155,6 +171,21 @@ def start_ptxas(tmp):
         for src in PTXAS_SOURCES}
 
 
+def kernel_name(mangled: str) -> str:
+    """name<template arguments> of the kernel in a mangled symbol: its
+    length-prefixed identifier that ends in "_kernel" (the hashes of an
+    anonymous namespace hold digits too, so the length decides)."""
+    import re
+
+    for m in re.finditer(r"(?=(\d{1,3})([A-Za-z_]\w*))", mangled):
+        n, ident = int(m.group(1)), m.group(2)
+        if len(ident) >= n and ident[:n].endswith("_kernel"):
+            t = re.match(r"I((?:L[a-z]\d+E)+)E", ident[n:])
+            args = re.findall(r"L[a-z](\d+)E", t.group(1)) if t else []
+            return ident[:n] + (f"<{','.join(args)}>" if args else "")
+    return mangled
+
+
 def ptxas_report(procs):
     """Registers, stack frame and spill bytes per kernel, from the output
     of start_ptxas's compiles."""
@@ -168,11 +199,7 @@ def ptxas_report(procs):
         for line in out.splitlines():
             m = re.search(r"Compiling entry function '(\w+)'", line)
             if m:
-                # mangled: <length><name>[I(L[ib]<value>E)+E]...
-                k = re.search(r"\d+([a-z_]+_kernel)(I(?:L[a-z]\d+E)+E)?",
-                              m.group(1))
-                args = re.findall(r"L[a-z](\d+)E", k.group(2) or "")
-                name = k.group(1) + (f"<{','.join(args)}>" if args else "")
+                name = kernel_name(m.group(1))
                 continue
             m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
                           r"stores, (\d+) bytes spill loads", line)
@@ -181,6 +208,10 @@ def ptxas_report(procs):
                 continue
             m = re.search(r"Used (\d+) registers", line)
             if m and name:
+                PTXAS[name] = dict(registers=int(m.group(1)),
+                                   stack_frame=int(frame[0]),
+                                   spill_stores=int(frame[1]),
+                                   spill_loads=int(frame[2]))
                 log(f"[ptxas] {src} {name}: {m.group(1)} registers, "
                     f"{frame[0]} bytes stack frame, {frame[1]} bytes spill "
                     f"stores, {frame[2]} bytes spill loads")
@@ -284,6 +315,32 @@ def _sweep_bound(B, cap, W):
     nbytes = B * (cap // 2 + cap // 2 + cap // 8) + B * (cap // 16 * W * 4
                                                           + 4)
     return bound(nbytes, B * cap * W * OPS_SWEEP_CELL)
+
+
+def _sweep16_bound(B, cap, W):
+    """The int16 sweep's least time: the same bytes, two cells per 16x2
+    instruction at the INT32 rate (the rate simd16_rate measures)."""
+    nbytes = B * (cap // 2 + cap // 2 + cap // 8) + B * (cap // 16 * W * 4
+                                                          + 4)
+    return bound(nbytes, B * cap * W * OPS_SWEEP_CELL / CELLS_PER_OP16)
+
+
+@contextlib.contextmanager
+def dp16(on):
+    """RACON_TPU_DP16 set to 1 (on) or unset (off) for the block, as it
+    was after."""
+    old = os.environ.get("RACON_TPU_DP16")
+    if on:
+        os.environ["RACON_TPU_DP16"] = "1"
+    else:
+        os.environ.pop("RACON_TPU_DP16", None)
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("RACON_TPU_DP16", None)
+        else:
+            os.environ["RACON_TPU_DP16"] = old
 
 
 def _walk_bound(B, cap, W, width, steps):
@@ -555,6 +612,84 @@ def phase_kernels(results, threads):
     scored(1280, 256, 1024, None, ("rle",), rng1, consensus)
 
 
+def phase_kernels16(results):
+    """Phase 2, the int16 DP (RACON_TPU_DP16=1): at (640,128) B = 4096 and
+    (256,128) B = 4097 with the consensus scores and (2560,512) B = 1024
+    with the align route's (0/-1/-1, unit deletion costs), the int16 kernel
+    against the int32 kernel on every item and against the int16 plain
+    version (every item at W = 128, the first `check` at (2560,512)),
+    byte for byte; ms of both kernels, in turns; the bound at two cells
+    an instruction; ptxas's registers and spills per kernel."""
+    import numpy as np
+
+    from racon_tpu_torch.ops import nw_kernel as nk
+    from racon_tpu_torch.ops.batch import to_device
+    from racon_tpu_torch.ops.geometry import sweep_dp16, sweep_kernel
+
+    consensus = dict(match=5, mismatch=-4, gap=-8)
+    align = dict(match=0, mismatch=-1, gap=-1)
+    rng = np.random.default_rng(1616)
+    for cap, W, B, sc, check in ((640, 128, 4096, consensus, None),
+                                 (256, 128, 4097, consensus, None),
+                                 (2560, 512, 1024, align, 64)):
+        geo = dict(m_cap=cap, n_cap=cap, w_band=W)
+        q4, t4, dcb, m, n = make_items(rng, B, cap, W, sc["gap"])
+        if sc is align:
+            dcb[:] = 0xFF
+        gpu = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap,
+                        device="cuda")
+        c = B if check is None else check
+        cpu = to_device(q4[:c], t4[:c], dcb[:c], m[:c], n[:c], m_cap=cap,
+                        n_cap=cap, device="cpu")
+        name, name32 = sweep_kernel(W, True), sweep_kernel(W)
+
+        def run(on):
+            with dp16(on):
+                return nk.nw_sweep(gpu.q4, gpu.t4, gpu.dcb, **geo, **sc)
+
+        with dp16(True):
+            if not sweep_dp16(cap, cap, W, **sc):
+                raise SmokeFailure(f"({cap},{W}) {sc} outside the int16 gate")
+            (pm, ps), plain_ms = host_ms(lambda: nk.nw_sweep_plain(
+                cpu.q4, cpu.t4, cpu.dcb, **geo, **sc))
+        m32, s32 = run(False)
+        m16, s16 = run(True)
+        err = max(compare(f"{name} moves vs {name32}'s", m16, m32.cpu()),
+                  compare(f"{name} score vs {name32}'s", s16, s32.cpu()),
+                  compare(f"{name} moves", m16[:c], pm),
+                  compare(f"{name} score", s16[:c], ps))
+        # in turns: int32, int16, int16, int32
+        t32a = cuda_ms(lambda: run(False))
+        t16a = cuda_ms(lambda: run(True))
+        t16b = cuda_ms(lambda: run(True))
+        t32b = cuda_ms(lambda: run(False))
+        ms16, ms32 = (t16a + t16b) / 2, (t32a + t32b) / 2
+        numbers = dict(max_abs_err=err, ms=ms16, plain_ms=plain_ms,
+                       int32_ms=ms32, int32_name=name32,
+                       ms_runs=[t16a, t16b], int32_ms_runs=[t32a, t32b])
+        bs, bys = _sweep16_bound(B, cap, W)
+        numbers.update(bound_ms=bs, bound_by=bys)
+        checked = "every" if check is None else f"the first {c}"
+        tag = "" if sc is consensus else " (align scores)"
+        log(f"[kernels16] {name} ({cap},{W}) B={B}{tag}: byte-equal to "
+            f"{name32} on every item and to the int16 plain version on "
+            f"{checked}; {ms16:.3f} ms ({t16a:.3f}, {t16b:.3f}) against "
+            f"{name32}'s {ms32:.3f} ms ({t32a:.3f}, {t32b:.3f}) = "
+            f"{ms32 / ms16:.2f}x; bound {bs:.5f} ms by {bys}; plain "
+            f"CPU {plain_ms:.1f} ms")
+        if check is not None:
+            numbers["plain_items"] = c
+        results[name]["shapes"].append(dict(
+            shape=[cap, W, B], scores="align" if sc is align else
+            "consensus", **numbers))
+        kernel = "nw_sweep16_warp" if W <= 256 else "nw_sweep16_block"
+        results[name]["ptxas"] = {k: v for k, v in PTXAS.items()
+                                  if k.startswith(kernel)}
+        if results[name]["ms"] is None:
+            results[name].update({k: numbers[k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
+
+
 def phase_bench(threads, results):
     """Phase 3: consensus stage on the bench workload, with the RLE walk
     (the default) and the rows walk (RACON_TPU_WALK=rows) in turns."""
@@ -570,7 +705,9 @@ def phase_bench(threads, results):
                          mismatch=-4, gap=-8)
     escapes = {}
     try:
-        for run, walk in enumerate(("rle", "rows", "rows", "rle")):
+        for run, (walk, int16) in enumerate((
+                ("rle", False), ("rows", False), ("rows", False),
+                ("rle", False), ("rle", True))):
             if walk == "rows":
                 os.environ["RACON_TPU_WALK"] = "rows"
             else:
@@ -578,18 +715,20 @@ def phase_bench(threads, results):
             stage = TorchConsensusStage(cfg, "cuda")
             reset_launches()
             t0 = time.perf_counter()
-            with contextlib.redirect_stderr(io.StringIO()):
+            with contextlib.redirect_stderr(io.StringIO()), dp16(int16):
                 cons, _ = stage.consensus_windows(windows, cfg, Logger())
             dt = time.perf_counter() - t0
             counts = dict(LAUNCHES)
             d = bindings.edit_distance(b"".join(cons), true.tobytes())
             prof = {k: round(v, 3) for k, v in stage.prof.items()}
-            escapes.setdefault(walk, int(stage.prof["escaped_items"]))
-            if run < 2:
-                record_launches(results, f"bench_{walk}", counts)
+            label = walk + ("_dp16" if int16 else "")
+            escapes.setdefault(label, int(stage.prof["escaped_items"]))
+            if run < 2 or int16:
+                record_launches(results, f"bench_{label}", counts)
             first = (" (the process's first run: includes first-launch "
                      "costs)" if run == 0 else "")
-            log(f"[bench] walk {walk}: {windows.num_windows} windows in "
+            log(f"[bench] walk {walk}{', RACON_TPU_DP16=1' * int16}: "
+                f"{windows.num_windows} windows in "
                 f"{dt:.3f} s = {windows.num_windows / dt:.2f} windows/s"
                 f"{first}; launches {counts}; stage {prof}; edit distance "
                 f"to truth {d}")
@@ -600,9 +739,10 @@ def phase_bench(threads, results):
                     "and RLE decode to the same ops wherever neither "
                     "escapes)")
             other = "rle" if walk == "rows" else "rows"
-            if not (counts["nw_sweep"] and counts[f"{walk}_walk"]) \
+            sweep = "nw_sweep16" if int16 else "nw_sweep"
+            if not (counts[sweep] and counts[f"{walk}_walk"]) \
                     or counts[f"{other}_walk"]:
-                raise SmokeFailure(f"{walk} walk run launched {counts}")
+                raise SmokeFailure(f"{label} walk run launched {counts}")
             if run == 1:
                 results["rows_walk"]["launches"] = counts["rows_walk"]
     finally:
@@ -699,7 +839,7 @@ def _device_profile(fn):
 def _profile_polish(wd, argv):
     """create_polisher -> initialize -> polish once more in this process,
     each of the two calls under torch.profiler: where the device time of
-    the main path goes."""
+    the main path goes. Returns polish()'s {kernel: [ms, launches]}."""
     from racon_tpu_torch import cli
     from racon_tpu_torch.polisher import create_polisher
 
@@ -714,8 +854,11 @@ def _profile_polish(wd, argv):
             wall, busy, by_name = _device_profile(fn)
             top = ", ".join(f"{k} {v[0]:.1f} ms / {v[1]}"
                             for k, v in list(by_name.items())[:6])
-            log(f"[profile] {call}() {wall:.3f} s (profiled), device busy "
-                f"{busy:.3f} s ({100 * busy / wall:.1f} %): {top}")
+            mode = ", RACON_TPU_DP16=1" * (os.environ.get(
+                "RACON_TPU_DP16") == "1")
+            log(f"[profile] {call}(){mode} {wall:.3f} s (profiled), device "
+                f"busy {busy:.3f} s ({100 * busy / wall:.1f} %): {top}")
+    return by_name
 
 
 POLISH_ARGV = ["--backend", "cuda", "-m", "5", "-x", "-4", "-g", "-8"]
@@ -743,7 +886,40 @@ def phase_polish(wd, genome_mb, threads, results):
                            f"{missing}")
     for k in (*mine, "nw_sweep_block"):
         results[k]["launches"] = counts[k]
-    _profile_polish(wd, [*POLISH_ARGV, "-t", str(threads)])
+    # the same path with H in int16 (RACON_TPU_DP16=1): the same FASTA
+    with dp16(True):
+        _, out16, counts16 = _polish_cli("polish16", wd, [
+            *POLISH_ARGV, "-t", str(threads)])
+    record_launches(results, "polish_w500_dp16", counts16)
+    if out16 != out:
+        raise SmokeFailure("the RACON_TPU_DP16=1 polish differs from the "
+                           "int32 one")
+    if not counts16["nw_sweep16"]:
+        raise SmokeFailure(f"RACON_TPU_DP16=1 polish launched {counts16}")
+    results["nw_sweep16"]["launches"] = counts16["nw_sweep16"]
+    log(f"[polish16] RACON_TPU_DP16=1: the FASTA is byte-equal to the int32 "
+        f"run's (identity {ident:.4f}%); nw_sweep16 {counts16['nw_sweep16']}"
+        f" launches, nw_sweep {counts16['nw_sweep']} (tiers above the int16 "
+        f"gate)")
+    sweeps = {}
+    for tag, on in (("int32", False), ("dp16", True)):
+        with dp16(on):
+            by_name = _profile_polish(wd, [*POLISH_ARGV, "-t", str(threads)])
+        sweeps[tag] = {k: v for k, v in by_name.items()
+                       if k.startswith("nw_sweep")}
+    log(f"[profile] polish() sweep kernels, int32 run: {sweeps['int32']}; "
+        f"RACON_TPU_DP16=1 run: {sweeps['dp16']} ([ms, launches])")
+    results["nw_sweep16"]["polish_profile"] = sweeps
+
+
+def short_reads(wd):
+    """Phase 6's third dataset, made in `wd`: testing.synth.make_dataset
+    at 0.5 Mb with 20x 2 kb reads, 12 % error, seed 11, whose overlaps fit
+    the align stage's (2560,512) tier."""
+    from racon_tpu_torch.testing.synth import make_dataset
+
+    make_dataset(wd, 500_000, 2000, 20, 0.12, seed=11)
+    return wd
 
 
 WIDE_ARGV = ["--backend", "cuda", "-w", "10000", "-m", "5", "-x", "-4",
@@ -794,9 +970,13 @@ def phase_align(datasets, threads, results):
     -> initialize, once each, on phase 4's dataset (8 kb overlaps: the
     W <= 1024 tiers, where the rows walk runs) and on phase 5's (20 kb
     deletion-biased overlaps drift past 448 bases: the W = 4096 tier),
-    with the counts reset just before each run. Breaking points are taken
-    from the align stage as it returns them. `datasets` lists (tag,
-    directory, CLI arguments)."""
+    with the counts reset just before each run. On the w = 500 datasets
+    (phase 4's and a 0.5 Mb one of 2 kb reads, whose overlaps fall in the
+    (2560,512) tier) the scored route runs once more under
+    RACON_TPU_DP16=1, where the int16 gate holds at (2560,512): the block
+    kernel's int16 form. Breaking points are taken from the align stage
+    as it returns them. `datasets` lists (tag, directory, CLI
+    arguments)."""
     import numpy as np
 
     from racon_tpu_torch import cli
@@ -814,7 +994,7 @@ def phase_align(datasets, threads, results):
         return out
 
     scored_env = {"RACON_TPU_MYERS": "0", "RACON_TPU_WALK": "rows"}
-    launched = {"myers": {}, "scored": {}}
+    launched = {"myers": {}, "scored": {}, "scored16": {}}
     wide = 0
     TorchAlignStage.breaking_points = capture
     try:
@@ -825,7 +1005,11 @@ def phase_align(datasets, threads, results):
                                                  "draft.fasta"))])
             cfg = cli.make_config(args)
             runs = {}
-            for route, env in (("myers", {}), ("scored", scored_env)):
+            routes = [("myers", {}), ("scored", scored_env)]
+            if data.startswith("w500"):
+                routes.append(("scored16", {**scored_env,
+                                            "RACON_TPU_DP16": "1"}))
+            for route, env in routes:
                 os.environ.update(env)
                 seen["indices"], seen["points"] = [], []
                 reset_launches()
@@ -853,26 +1037,30 @@ def phase_align(datasets, threads, results):
                     wide += sum(c for t, c in st["tier_items"].items()
                                 if t != -1 and t[1] == 4096)
                 runs[route] = dict(seen, host=st["host_items"])
-            a, b = runs["myers"], runs["scored"]
-            # a host-aligned overlap would break ties otherwise than the
-            # device walks; neither route sends one here
-            if a["host"] or b["host"]:
-                raise SmokeFailure(f"{data}: overlaps aligned on the host: "
-                                   f"{a['host']} (Myers), {b['host']} "
-                                   "(scored)")
-            if a["indices"] != b["indices"]:
-                raise SmokeFailure(f"{data}: the two runs aligned different "
-                                   "overlaps")
-            differ = [i for i, x, y in zip(a["indices"], a["points"],
-                                           b["points"])
-                      if not np.array_equal(x, y)]
-            log(f"[align] {data}: breaking points of all "
-                f"{len(a['indices'])} overlaps: "
-                f"{len(a['indices']) - len(differ)} equal, {len(differ)} "
-                "differ")
-            if differ:
-                raise SmokeFailure(f"{data}: breaking points differ on "
-                                   f"overlaps {differ[:20]}")
+            a = runs["myers"]
+            for route in runs:
+                if route == "myers":
+                    continue
+                b = runs[route]
+                # a host-aligned overlap would break ties otherwise than
+                # the device walks; no route sends one here
+                if a["host"] or b["host"]:
+                    raise SmokeFailure(
+                        f"{data}: overlaps aligned on the host: "
+                        f"{a['host']} (Myers), {b['host']} ({route})")
+                if a["indices"] != b["indices"]:
+                    raise SmokeFailure(f"{data}: the Myers and {route} runs "
+                                       "aligned different overlaps")
+                differ = [i for i, x, y in zip(a["indices"], a["points"],
+                                               b["points"])
+                          if not np.array_equal(x, y)]
+                log(f"[align] {data} {route}: breaking points of all "
+                    f"{len(a['indices'])} overlaps: "
+                    f"{len(a['indices']) - len(differ)} equal to the Myers "
+                    f"route's, {len(differ)} differ")
+                if differ:
+                    raise SmokeFailure(f"{data} {route}: breaking points "
+                                       f"differ on overlaps {differ[:20]}")
     finally:
         TorchAlignStage.breaking_points = real
         for k in scored_env:
@@ -888,6 +1076,13 @@ def phase_align(datasets, threads, results):
         raise SmokeFailure("no item in a W = 4096 tier")
     log(f"[align] scored route: {wide} items in W = 4096 tiers; launches "
         f"{launched['scored']}")
+    if not launched["scored16"].get("nw_sweep_block16"):
+        raise SmokeFailure(f"the RACON_TPU_DP16=1 scored route launched "
+                           f"{launched['scored16']}")
+    results["nw_sweep_block16"]["launches"] = \
+        launched["scored16"]["nw_sweep_block16"]
+    log(f"[align] scored route under RACON_TPU_DP16=1: launches "
+        f"{launched['scored16']}")
     # the block sweep's launches: the default path's where its consensus
     # tiers above W = 256 ran, else the scored align route's
     if not results["nw_sweep_block"]["launches"]:
@@ -1041,8 +1236,10 @@ def main() -> int:
     t0 = time.perf_counter()
     try:
         with tempfile.TemporaryDirectory() as wd4, \
-                tempfile.TemporaryDirectory() as wd5:
+                tempfile.TemporaryDirectory() as wd5, \
+                tempfile.TemporaryDirectory() as wd6:
             for phase in (lambda: phase_kernels(results, threads),
+                          lambda: phase_kernels16(results),
                           lambda: phase_bench(threads, results),
                           lambda: phase_polish(wd4, args.genome_mb, threads,
                                                results),
@@ -1050,6 +1247,7 @@ def main() -> int:
                                              threads, results),
                           lambda: phase_align(
                               [("w500", wd4, POLISH_ARGV),
+                               ("w500_2kb", short_reads(wd6), POLISH_ARGV),
                                ("w10000", wd5, WIDE_ARGV)], threads,
                               results),
                           lambda: phase_ablate(results)):

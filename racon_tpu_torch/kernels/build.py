@@ -1,8 +1,8 @@
 """Build and load the port's CUDA kernels at first use.
 
-Sources live in racon_tpu_torch/kernels/csrc: seven .cu files with plain
-C launchers (nw_sweep, rle_walk, rows_walk, packed_walk, myers_sweep,
-myers_walk, nw_sweep_t), their headers (common.cuh, sweep_scan.cuh), and
+Sources live in racon_tpu_torch/kernels/csrc: eight .cu files with plain
+C launchers (nw_sweep, nw_sweep16, rle_walk, rows_walk, packed_walk,
+myers_sweep, myers_walk, nw_sweep_t), their headers (common.cuh, sweep_scan.cuh), and
 one small binding, bindings.cpp, the only file that includes
 torch/extension.h. They are compiled for sm_90a into
 racon_tpu_torch/kernels/build/ (gitignored) by
@@ -29,7 +29,7 @@ import torch
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
-KERNEL_SOURCES = ("nw_sweep.cu", "rle_walk.cu", "rows_walk.cu",
+KERNEL_SOURCES = ("nw_sweep.cu", "nw_sweep16.cu", "rle_walk.cu", "rows_walk.cu",
                   "packed_walk.cu", "myers_sweep.cu", "myers_walk.cu",
                   "nw_sweep_t.cu")
 ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
@@ -45,7 +45,8 @@ class KernelBuildError(RuntimeError):
 
 
 def kernels():
-    """The loaded kernel module: `nw_sweep`, `rle_walk`, `rows_walk`,
+    """The loaded kernel module: `nw_sweep`, `nw_sweep16`, `rle_walk`,
+    `rows_walk`,
     `packed_walk`, `myers_sweep`, `myers_walk` and `nw_sweep_t`, each
     taking CUDA tensors (outputs preallocated by the caller) and launching
     on the current stream."""
@@ -113,6 +114,7 @@ class _CtypesKernels:
         lib = ctypes.CDLL(path)
         P, I = ctypes.c_void_p, ctypes.c_int
         sigs = {"rtt_nw_sweep": [P] * 5 + [I] * 8 + [P],
+                "rtt_nw_sweep16": [P] * 5 + [I] * 9 + [P],
                 "rtt_rle_walk": [P] * 4 + [I] * 5 + [P],
                 "rtt_rows_walk": [P] * 4 + [I] * 4 + [P],
                 "rtt_packed_walk": [P] * 4 + [I] * 5 + [P],
@@ -163,6 +165,22 @@ class _CtypesKernels:
                 self._check(score, "score", torch.int32, (B,))]
         self._call(self._lib.rtt_nw_sweep, *ptrs, B, m_cap, n_cap, W, match,
                    mismatch, gap, span)
+
+    def nw_sweep16(self, q4, t4, dcb, moves, score, m_cap, n_cap, W, match,
+                   mismatch, gap, span, neg):
+        B = q4.shape[0]
+        if not (W % 32 == 0 and 0 < W <= 1024 and m_cap % 16 == 0
+                and n_cap % 32 == 0 and n_cap - m_cap - W // 2 <= 0
+                and -15000 <= neg < 0):
+            raise ValueError("nw_sweep16: unsupported geometry")
+        ptrs = [self._check(q4, "q4", torch.uint8, (B, m_cap // 2)),
+                self._check(t4, "t4", torch.uint8, (B, n_cap // 2)),
+                self._check(dcb, "dcb", torch.uint8, (B, n_cap // 8)),
+                self._check(moves, "moves", torch.int32,
+                            (B, m_cap // 16, W)),
+                self._check(score, "score", torch.int32, (B,))]
+        self._call(self._lib.rtt_nw_sweep16, *ptrs, B, m_cap, n_cap, W,
+                   match, mismatch, gap, span, neg)
 
     def rle_walk(self, moves, m, n, payload, m_cap, n_cap, W, E):
         B = moves.shape[0]

@@ -30,6 +30,10 @@ int rtt_nw_sweep_t(const int32_t* q, const int32_t* tp, const int32_t* gcp,
                    int32_t* moves, int32_t* score, int B, int m_cap, int n_cap,
                    int W, int match, int mismatch, int gap, int span,
                    int variant, cudaStream_t stream);
+int rtt_nw_sweep16(const uint8_t* q4, const uint8_t* t4, const uint8_t* dcb,
+                   int32_t* moves, int32_t* score, int B, int m_cap,
+                   int n_cap, int W, int match, int mismatch, int gap,
+                   int span, int neg, cudaStream_t stream);
 const char* rtt_error_string(int e);
 }
 
@@ -72,6 +76,27 @@ void nw_sweep(const at::Tensor& q4, const at::Tensor& t4,
                     dcb.data_ptr<uint8_t>(), moves.data_ptr<int32_t>(),
                     score.data_ptr<int32_t>(), B, m_cap, n_cap, W, match,
                     mismatch, gap, span, stream()));
+}
+
+void nw_sweep16(const at::Tensor& q4, const at::Tensor& t4,
+                const at::Tensor& dcb, const at::Tensor& moves,
+                const at::Tensor& score, int64_t m_cap, int64_t n_cap,
+                int64_t W, int64_t match, int64_t mismatch, int64_t gap,
+                int64_t span, int64_t neg) {
+  const int64_t B = q4.size(0);
+  check(q4, "q4", at::kByte, {B, m_cap / 2});
+  check(t4, "t4", at::kByte, {B, n_cap / 2});
+  check(dcb, "dcb", at::kByte, {B, n_cap / 8});
+  check(moves, "moves", at::kInt, {B, m_cap / 16, W});
+  check(score, "score", at::kInt, {B});
+  TORCH_CHECK(W % 32 == 0 && W > 0 && W <= 1024 && m_cap % 16 == 0 &&
+              n_cap % 32 == 0 && n_cap - m_cap - W / 2 <= 0 &&
+              neg >= -15000 && neg < 0,
+              "nw_sweep16: unsupported geometry");
+  done(rtt_nw_sweep16(q4.data_ptr<uint8_t>(), t4.data_ptr<uint8_t>(),
+                      dcb.data_ptr<uint8_t>(), moves.data_ptr<int32_t>(),
+                      score.data_ptr<int32_t>(), B, m_cap, n_cap, W, match,
+                      mismatch, gap, span, neg, stream()));
 }
 
 void rle_walk(const at::Tensor& moves, const at::Tensor& m,
@@ -167,6 +192,7 @@ void nw_sweep_t(const at::Tensor& q, const at::Tensor& tp,
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
   mod.def("nw_sweep", &nw_sweep);
+  mod.def("nw_sweep16", &nw_sweep16);
   mod.def("rle_walk", &rle_walk);
   mod.def("rows_walk", &rows_walk);
   mod.def("packed_walk", &packed_walk);

@@ -9,11 +9,15 @@ budgets are decoded by the port's copy of the native runtime
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
+import torch
 
 PAD_CODE = 5              # nw_kernel.py:43; matches itself, rejects bases
 NEG = -(10 ** 5)          # nw_kernel.py:44; forbids pad-vs-real pairing
 SCAN_FILL = 2 * NEG       # fill of the scored sweep's max-plus prefix scan
+DP16_FILL = -30000        # the scan's fill in the int16 DP (nw_kernel.py:815)
 PACK = 16                 # query rows per int32 move word (nw_kernel._PACK)
 GROUP = 128               # query rows per grid step of the TPU's transposed
                           # sweeps (nw_kernel._GROUP)
@@ -79,6 +83,30 @@ def scan_span(w_band: int) -> int:
     return s
 
 
+def dp16_eligible(m_cap: int, n_cap: int, match: int, mismatch: int,
+                  gap: int) -> bool:
+    """Whether the scored sweep runs H in int16 (nw_kernel.py:790-808):
+    only under RACON_TPU_DP16=1 (read at call time; default off), and only
+    where every intermediate stays in int16 range, the most negative being
+    neg + neg with neg = -((m_cap + n_cap) * cmax + 64)."""
+    if os.environ.get("RACON_TPU_DP16", "0") != "1":
+        return False
+    cmax = max(abs(match), abs(mismatch), abs(gap))
+    return 2 * ((m_cap + n_cap) * cmax + 64) <= 30000
+
+
+def dp_consts(m_cap: int, n_cap: int, match: int, mismatch: int,
+              gap: int) -> tuple[torch.dtype, int, int]:
+    """(dtype of H, the sentinel neg, the scan's fill) of the scored sweep
+    (nw_kernel.py:811-815): int16 with neg = -((m_cap + n_cap) * cmax + 64)
+    and fill DP16_FILL where dp16_eligible holds, else int32 with NEG and
+    SCAN_FILL."""
+    if dp16_eligible(m_cap, n_cap, match, mismatch, gap):
+        cmax = max(abs(match), abs(mismatch), abs(gap))
+        return torch.int16, -((m_cap + n_cap) * cmax + 64), DP16_FILL
+    return torch.int32, NEG, SCAN_FILL
+
+
 def guard_bits(w_band: int) -> int:
     """Zero-bit guard on each side of the Peq mask (myers_kernel.py:61)."""
     return w_band // 2 + 32
@@ -89,9 +117,10 @@ def peq_words(n_cap: int, w_band: int) -> int:
     return (n_cap + 2 * guard_bits(w_band)) // 32
 
 
-# Launch geometry of the two kernels built around one warp per item; the
-# constants mirror kSweepWarps (kernels/csrc/nw_sweep.cu) and kWalkWarps,
-# kWalkRows (kernels/csrc/myers_walk.cu).
+# Launch geometry of the kernels built around one warp per item; the
+# constants mirror kSweepWarps (kernels/csrc/nw_sweep.cu), kSweep16Warps
+# (kernels/csrc/nw_sweep16.cu) and kWalkWarps, kWalkRows
+# (kernels/csrc/myers_walk.cu).
 SWEEP_WARP_MAX_W = 256    # widest band the warp-per-item sweep takes
 SWEEP_WARPS = 4           # items (warps) per block of the warp sweep
 MYERS_WALK_WARPS = 2      # items (warps) per block of the Myers walk
@@ -106,27 +135,66 @@ def sweep_lanes(w_band: int) -> int:
     return 1 if w_band <= 1024 else (2 if w_band <= 2048 else 4)
 
 
-def sweep_kernel(w_band: int) -> str:
+def sweep_kernel(w_band: int, dp16: bool = False) -> str:
     """Which sweep kernel a band width launches, by its launch counter:
     "nw_sweep" (the warp kernel, K1's tiers), "nw_sweep_block" (one block
     per item, one lane per thread: K2's tiers and the align stage's scored
     route up to W = 1024) or "nw_sweep_wide" (two or four lanes per
-    thread: K5)."""
+    thread: K5). With dp16 (H in int16, sweep_dp16) up to W = 1024, their
+    int16 forms "nw_sweep16" and "nw_sweep_block16"; K5 has none."""
+    if w_band > 1024:
+        return "nw_sweep_wide"
+    name = "nw_sweep" if w_band <= SWEEP_WARP_MAX_W else "nw_sweep_block"
+    return name + "16" if dp16 else name
+
+
+def sweep_dp16(m_cap: int, n_cap: int, w_band: int, match: int,
+               mismatch: int, gap: int) -> bool:
+    """Whether the sweep at this shape runs H in int16: dp16_eligible,
+    where the reference's transposed kernels (t8, t8big) run, W <= 1024;
+    its lane-major kernel (W = 2048, 4096) is int32 only."""
+    return w_band <= 1024 and dp16_eligible(m_cap, n_cap, match, mismatch,
+                                            gap)
+
+
+def sweep16_tpi(w_band: int) -> int:
+    """Threads per item of the int16 warp kernel (W <= 256): 16, two items
+    a warp, at W = 128, where that layout timed faster than one warp an
+    item on the H100 (PERF.md); 32 at the other widths."""
+    return 16 if w_band == 128 else 32
+
+
+def sweep16_threads(w_band: int) -> int:
+    """Threads per item of the int16 sweep: sweep16_tpi for the warp
+    kernel, one per pair of band lanes rounded up to whole warps for the
+    block kernel (W = 512: 256)."""
     if w_band <= SWEEP_WARP_MAX_W:
-        return "nw_sweep"
-    return "nw_sweep_block" if w_band <= 1024 else "nw_sweep_wide"
+        return sweep16_tpi(w_band)
+    return -(-w_band // 64) * 32
 
 
-def sweep_launch(B: int, m_cap: int, n_cap: int,
-                 w_band: int) -> tuple[int, int, int]:
+def sweep_launch(B: int, m_cap: int, n_cap: int, w_band: int,
+                 dp16: bool = False) -> tuple[int, int, int]:
     """(blocks, threads per block, shared bytes per block) of one sweep
-    launch, as rtt_nw_sweep and rtt_nw_sweep_smem compute them: the warp
-    kernel holds SWEEP_WARPS items a block, each warp its item's code bytes
-    (m_cap + n_cap); the block kernel one item, with its lane exchange,
-    warp totals, deletion bitmask and code bytes."""
-    if sweep_kernel(w_band) == "nw_sweep":
+    launch, as rtt_nw_sweep / rtt_nw_sweep_smem and rtt_nw_sweep16 /
+    rtt_nw_sweep16_smem compute them: the warp kernel holds SWEEP_WARPS
+    items a block, each warp its item's code bytes (m_cap + n_cap); the
+    block kernel one item, with its lane exchange, warp totals, deletion
+    bitmask and code bytes. The int16 warp kernel holds 32 * SWEEP_WARPS /
+    sweep16_tpi items a block, each its query code bytes and its target
+    columns as 16-bit halves (m_cap + 2 n_cap); the int16 block kernel
+    one item, with its pair exchange, warp totals and codes."""
+    kernel = sweep_kernel(w_band, dp16)
+    if kernel == "nw_sweep":
         return (-(-B // SWEEP_WARPS), 32 * SWEEP_WARPS,
                 SWEEP_WARPS * (m_cap + n_cap))
+    if kernel == "nw_sweep16":
+        per_block = 32 * SWEEP_WARPS // sweep16_tpi(w_band)
+        return (-(-B // per_block), 32 * SWEEP_WARPS,
+                per_block * (m_cap + 2 * n_cap))
+    if kernel == "nw_sweep_block16":
+        threads = sweep16_threads(w_band)
+        return B, threads, (2 * threads + 32) * 4 + m_cap + 2 * n_cap
     threads = w_band // sweep_lanes(w_band)
     return B, threads, (2 * threads + 32 + n_cap // 32) * 4 + m_cap + n_cap
 

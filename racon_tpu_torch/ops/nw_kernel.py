@@ -4,9 +4,9 @@ RACON_TPU_MYERS=0 (port of racon_tpu/ops/nw_kernel.py).
 
 Each function takes its tensors on one device. On a CUDA tensor it
 launches the hand-written kernel (kernels/csrc/nw_sweep.cu,
-kernels/csrc/rle_walk.cu, kernels/csrc/rows_walk.cu,
-kernels/csrc/packed_walk.cu, kernels/csrc/nw_sweep_t.cu) and counts the
-launch; on a CPU tensor it runs the plain PyTorch version beside it,
+kernels/csrc/nw_sweep16.cu, kernels/csrc/rle_walk.cu,
+kernels/csrc/rows_walk.cu, kernels/csrc/packed_walk.cu,
+kernels/csrc/nw_sweep_t.cu) and counts the launch; on a CPU tensor it runs the plain PyTorch version beside it,
 which is the readable specification and what the CPU tests hold against
 the JAX package. Any other device raises.
 
@@ -45,8 +45,9 @@ from ..native import bindings
 from .batch import to_device, unpack_bits, unpack_codes
 from .geometry import (GROUP, NEG, OP_STREAM_SKIP, PAD_CODE, PACK,
                        REC_DIAG, REC_UP, RLE_LEFT, RLE_SKIP, RLE_UP,
-                       SCAN_FILL, band_dlo, rle_events, rows_payload_width,
-                       scan_span, sweep_fits, sweep_kernel, sweep_lanes,
+                       SCAN_FILL, band_dlo, dp_consts, rle_events,
+                       rows_payload_width, scan_span, sweep_dp16,
+                       sweep_fits, sweep_kernel, sweep_lanes,
                        sweep_t_fits, walk_steps)
 
 
@@ -71,7 +72,11 @@ def nw_sweep(q4, t4, dcb, *, m_cap, n_cap, w_band, match, mismatch, gap):
     counted as "nw_sweep"), nw_band_batch_t8big (W = 288 .. 1024: one
     block per item, "nw_sweep_block") and nw_band_batch (W = 2048 and
     4096, two or four band lanes per thread, "nw_sweep_wide"); see
-    geometry.sweep_kernel."""
+    geometry.sweep_kernel. Where geometry.sweep_dp16 holds
+    (RACON_TPU_DP16=1 and the int16 gate), H runs in int16, as the
+    reference's t8 and t8big do there: kernels/csrc/nw_sweep16.cu's warp
+    or block kernel ("nw_sweep16", "nw_sweep_block16"), equal bit for bit
+    to the int32 sweep."""
     if not sweep_fits(m_cap, n_cap, w_band):
         raise ValueError(f"sweep shape ({m_cap}, {n_cap}, {w_band}) "
                          "unsupported")
@@ -79,15 +84,39 @@ def nw_sweep(q4, t4, dcb, *, m_cap, n_cap, w_band, match, mismatch, gap):
         return nw_sweep_plain(q4, t4, dcb, m_cap=m_cap, n_cap=n_cap,
                               w_band=w_band, match=match, mismatch=mismatch,
                               gap=gap)
+    if sweep_dp16(m_cap, n_cap, w_band, match, mismatch, gap):
+        return launch_sweep16(q4, t4, dcb, m_cap=m_cap, n_cap=n_cap,
+                              w_band=w_band, match=match, mismatch=mismatch,
+                              gap=gap)
     from ..kernels.build import kernels
 
+    B = q4.shape[0]
+    out = (torch.empty((B, m_cap // PACK, w_band), dtype=torch.int32,
+                       device=q4.device),
+           torch.empty((B,), dtype=torch.int32, device=q4.device))
+    kernels().nw_sweep(q4, t4, dcb, *out, m_cap, n_cap, w_band, match,
+                       mismatch, gap, scan_span(w_band))
+    LAUNCHES[sweep_kernel(w_band)] += 1
+    return out
+
+
+def launch_sweep16(q4, t4, dcb, *, m_cap, n_cap, w_band, match, mismatch,
+                   gap):
+    """Launch kernels/csrc/nw_sweep16.cu on CUDA inputs, H in int16 with
+    the sentinel of geometry.dp_consts (which must give int16), counted
+    as "nw_sweep16" (W <= 256) or "nw_sweep_block16"."""
+    from ..kernels.build import kernels
+
+    dt, neg, _ = dp_consts(m_cap, n_cap, match, mismatch, gap)
+    if dt != torch.int16:
+        raise ValueError("launch_sweep16 outside the int16 gate")
     B = q4.shape[0]
     moves = torch.empty((B, m_cap // PACK, w_band), dtype=torch.int32,
                         device=q4.device)
     score = torch.empty((B,), dtype=torch.int32, device=q4.device)
-    kernels().nw_sweep(q4, t4, dcb, moves, score, m_cap, n_cap, w_band,
-                       match, mismatch, gap, scan_span(w_band))
-    LAUNCHES[sweep_kernel(w_band)] += 1
+    kernels().nw_sweep16(q4, t4, dcb, moves, score, m_cap, n_cap, w_band,
+                         match, mismatch, gap, scan_span(w_band), neg)
+    LAUNCHES[sweep_kernel(w_band, True)] += 1
     return moves, score
 
 
@@ -96,15 +125,20 @@ def nw_sweep_plain(q4, t4, dcb, *, m_cap, n_cap, w_band, match, mismatch,
     """Plain PyTorch version of nw_sweep on CPU tensors: the packed batch
     unpacked into K7's panels and sweep_t_rows' row loop, the same
     recurrence as nw_band_batch_ref (gc integrated here once, not per
-    row)."""
+    row); H in int16 with the int16 sentinels where geometry.sweep_dp16
+    holds, as the reference's t8 and t8big run it."""
     if q4.device.type != "cpu":
         raise ValueError("nw_sweep_plain takes CPU tensors")
     q = unpack_codes(q4, m_cap)
     t = unpack_codes(t4, n_cap)
     dc = unpack_bits(dcb, n_cap) * gap
-    return sweep_t_rows(*sweep_t_panels(q, t, dc, w_band=w_band),
-                        m_cap=m_cap, n_cap=n_cap, w_band=w_band, match=match,
-                        mismatch=mismatch, gap=gap)
+    q, tp, gcp = sweep_t_panels(q, t, dc, w_band=w_band)
+    dt, neg, fill = (dp_consts(m_cap, n_cap, match, mismatch, gap)
+                     if sweep_dp16(m_cap, n_cap, w_band, match, mismatch, gap)
+                     else (torch.int32, NEG, SCAN_FILL))
+    return sweep_t_rows(q, tp, gcp.to(dt), m_cap=m_cap, n_cap=n_cap,
+                        w_band=w_band, match=match, mismatch=mismatch,
+                        gap=gap, dt=dt, neg=neg, fill=fill)
 
 
 # ------------------------------------------ int32 panel sweep (K7, K8)
@@ -190,7 +224,7 @@ def launch_sweep_t(q, tp, gcp, *, m_cap, n_cap, w_band, match, mismatch,
 
 
 def sweep_t_rows(q, tp, gcp, *, m_cap, n_cap, w_band, match, mismatch, gap,
-                 variant="full"):
+                 variant="full", dt=torch.int32, neg=NEG, fill=SCAN_FILL):
     """The plain row loop over the panels (CPU tensors) behind
     nw_sweep_plain, nw_sweep_t_plain and the ablation variants: per row i
     a (B, W) band tile read at off = i - 1 + W + dlo, the recurrence of
@@ -200,7 +234,10 @@ def sweep_t_rows(q, tp, gcp, *, m_cap, n_cap, w_band, match, mismatch, gap,
     leaves the moves unwritten (torch.empty, never to be compared),
     "noload" reads every row at off = W + dlo and query row 0, and
     "empty" gives moves[b, 8g + p, k] = gcp[b, k] + p and score
-    gcp[b, 0] + 8."""
+    gcp[b, 0] + 8. H, gcp and every value derived from them are of dtype
+    dt with the sentinel neg and the scan's fill `fill` (int16 in the
+    reference's dp16 mode, nw_kernel.py:811-815; its arithmetic wraps as
+    the TPU's does)."""
     B = q.shape[0]
     W = w_band
     dlo = band_dlo(m_cap, n_cap, W)
@@ -215,9 +252,12 @@ def sweep_t_rows(q, tp, gcp, *, m_cap, n_cap, w_band, match, mismatch, gap,
     k = torch.arange(W, dtype=torch.int32)
     fill_lane = k <= scan_span(W) - 2
     j0 = dlo + k
+    negt = torch.tensor(neg, dtype=dt)
     h = torch.where((j0 >= 0) & (j0 <= n_cap), gcp[:, W + dlo : 2 * W + dlo],
-                    torch.tensor(NEG, dtype=torch.int32))
-    neg_col = torch.full((B, 1), NEG, dtype=torch.int32)
+                    negt)
+    neg_col = torch.full((B, 1), neg, dtype=dt)
+    match_t = torch.tensor(match, dtype=dt)
+    mismatch_t = torch.tensor(mismatch, dtype=dt)
     moves = torch.zeros((B, m_cap // PACK, W), dtype=torch.int64)
     for i in range(1, m_cap + 1):
         jrow = i + dlo + k
@@ -226,24 +266,24 @@ def sweep_t_rows(q, tp, gcp, *, m_cap, n_cap, w_band, match, mismatch, gap,
         start = (i - 1 if dynload else 0) + W + dlo
         t_row = tp[:, start : start + W]
         qi = q[:, i - 1 : i] if dynload else q[:, :1]
-        sub = torch.where((t_row == PAD_CODE) ^ (qi == PAD_CODE), NEG,
-                          torch.where(t_row == qi, match, mismatch))
+        sub = torch.where((t_row == PAD_CODE) ^ (qi == PAD_CODE), negt,
+                          torch.where(t_row == qi, match_t, mismatch_t))
         diag_c = h + sub
         up_c = torch.cat([h[:, 1:], neg_col], 1) + gap
         cand = torch.maximum(diag_c, up_c)
-        cand = torch.where(jrow == 0, i * gap, cand)
-        cand = torch.where(inside, cand, NEG)
+        cand = torch.where(jrow == 0, torch.tensor(i * gap, dtype=dt), cand)
+        cand = torch.where(inside, cand, negt)
         if closure:
             gc_here = gcp[:, start + 1 : start + 1 + W]
             a = torch.cummax(cand - gc_here, dim=1).values
-            a = torch.where(fill_lane, torch.clamp(a, min=SCAN_FILL), a)
+            a = torch.where(fill_lane, torch.clamp(a, min=fill), a)
             cand = a + gc_here
-        h = torch.where(inside, cand, NEG).to(torch.int32)
+        h = torch.where(inside, cand, negt)
         if store:
             mv = torch.where(h == diag_c, 0, torch.where(h == up_c, 1, 2))
             mv = torch.where(valid, mv, 3).to(torch.int64)
             moves[:, (i - 1) // PACK] |= mv << (2 * ((i - 1) % PACK))
-    score = h[:, n_cap - m_cap - dlo].clone()
+    score = h[:, n_cap - m_cap - dlo].to(torch.int32)
     if not store:
         return torch.empty((B, m_cap // PACK, W), dtype=torch.int32), score
     return _as_int32_bits(moves), score

@@ -76,6 +76,42 @@ def test_sweep_and_rle_walk_match_plain(gpu, cap, w, B):
     assert torch.equal(payload.cpu(), nk.rle_walk_plain(pm, c.m, c.n, **geo))
 
 
+@pytest.mark.parametrize("cap,w,B,scores", [
+    (256, 128, 4097, (5, -4, -8)), (640, 128, 4097, (5, -4, -8)),
+    (256, 96, 130, (5, -4, -8)), (320, 160, 130, (5, -4, -8)),
+    (512, 256, 1025, (3, -5, -4)), (2560, 512, 48, (0, -1, -1)),
+    (768, 288, 48, (5, -4, -8))])
+def test_sweep16_matches_plain_and_int32(gpu, monkeypatch, cap, w, B, scores):
+    """RACON_TPU_DP16=1: the int16 warp kernel (W <= 256; at W = 128 two
+    items a warp, whose last warp runs half empty at odd B) and block
+    kernel (W = 288, 512) against the int16 plain version and the int32
+    kernel, byte for byte, with _packed's all-PAD and out-of-band items;
+    nw_sweep launches the int16 kernel and not the int32 one, and
+    launch_sweep16 counts each launch."""
+    q4, t4, dcb, m, n = _packed(cap + w, B, cap, w)
+    geo = dict(m_cap=cap, n_cap=cap, w_band=w)
+    sc = dict(zip(("match", "mismatch", "gap"), scores))
+    g = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap, device=gpu)
+    c = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap, device="cpu")
+    monkeypatch.delenv("RACON_TPU_DP16", raising=False)
+    m32, s32 = nk.nw_sweep(g.q4, g.t4, g.dcb, **geo, **sc)
+    monkeypatch.setenv("RACON_TPU_DP16", "1")
+    name = sweep_kernel(w, True)
+    assert name == ("nw_sweep16" if w <= 256 else "nw_sweep_block16")
+    before = dict(LAUNCHES)
+    m16, s16 = nk.nw_sweep(g.q4, g.t4, g.dcb, **geo, **sc)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == before[name] + 1
+    assert LAUNCHES[sweep_kernel(w)] == before[sweep_kernel(w)]
+    assert torch.equal(m16, m32) and torch.equal(s16, s32)
+    again = nk.launch_sweep16(g.q4, g.t4, g.dcb, **geo, **sc)
+    torch.cuda.synchronize()
+    assert LAUNCHES[name] == before[name] + 2
+    assert torch.equal(again[0], m16) and torch.equal(again[1], s16)
+    pm, ps = nk.nw_sweep_plain(c.q4, c.t4, c.dcb, **geo, **sc)
+    assert torch.equal(m16.cpu(), pm) and torch.equal(s16.cpu(), ps)
+
+
 @pytest.mark.parametrize("cap,w", [(640, 128), (5120, 1024)])
 def test_rows_walk_matches_plain(gpu, cap, w):
     q4, t4, dcb, m, n = _packed(cap + w + 2, 96 if cap < 1000 else 8, cap,

@@ -8,6 +8,7 @@ numpy here, its shared-memory byte layout and bit tricks included, and
 held against nw_sweep_plain; the launch geometry (ops/geometry.py) is
 checked against the kernel's constants."""
 
+import functools
 import re
 from pathlib import Path
 
@@ -309,3 +310,262 @@ def test_warp_sweep_blocks_for_ragged_batches(B, blocks):
     one block per item."""
     assert geometry.sweep_launch(B, 640, 640, 128)[0] == blocks
     assert geometry.sweep_launch(B, 5120, 5120, 1024)[:2] == (B, 1024)
+
+
+# ------------------------------------- the int16 sweeps (RACON_TPU_DP16=1)
+#
+# kernels/csrc/nw_sweep16.cu keeps two band lanes in one 32-bit word (an
+# s16x2 pair). The model below runs that layout in numpy, instruction for
+# instruction: the prmt selectors (sign replication included), the 16x2
+# adds, minima and maxima, the substitution from the XOR of code bytes, the
+# per-thread edge branch, the scan over the thread's halves and the thread
+# totals, and the moves gathered 8 rows to a pair word.
+
+_M16 = 0xFFFF
+
+
+def _u32(x):
+    return np.asarray(x, np.int64) & 0xFFFFFFFF
+
+
+def _prmt(a, b, sel):
+    """PTX prmt.b32 (generic mode) on uint32 arrays: byte n of the result
+    is byte (nibble n & 7) of b:a, or that byte's sign replicated where
+    nibble n has bit 3 set."""
+    a, b = _u32(a), _u32(b)
+    out = np.zeros(np.broadcast(a, b).shape, np.int64)
+    for n in range(4):
+        nib = (sel >> (4 * n)) & 15
+        src = a if (nib & 7) < 4 else b
+        byte = (src >> (8 * (nib & 3))) & 255
+        if nib & 8:
+            byte = np.where(byte & 0x80, 255, 0)
+        out |= byte << (8 * n)
+    return out
+
+
+def _halves(x):
+    x = _u32(x)
+    return x & _M16, x >> 16
+
+
+def _pair(lo, hi):
+    return (np.asarray(lo, np.int64) & _M16) | ((np.asarray(hi, np.int64)
+                                                  & _M16) << 16)
+
+
+def _s16(h):
+    return ((h & _M16) ^ 0x8000) - 0x8000
+
+
+def _lanewise(fn, *xs):
+    """fn applied to the low halves and to the high halves of pair words."""
+    lo = fn(*(_halves(x)[0] for x in xs))
+    hi = fn(*(_halves(x)[1] for x in xs))
+    return _pair(lo, hi)
+
+
+def _vadd2(a, b):
+    return _lanewise(lambda x, y: x + y, a, b)
+
+
+def _vsub2(a, b):
+    return _lanewise(lambda x, y: x - y, a, b)
+
+
+def _vmaxs2(*xs):
+    return _lanewise(lambda *h: functools.reduce(np.maximum, map(_s16, h)),
+                     *xs)
+
+
+def _vminu2(*xs):
+    return _lanewise(lambda *h: functools.reduce(np.minimum, h), *xs)
+
+
+def _dup16(v):
+    return _pair(v, v)
+
+
+def _enc4(v):
+    """enc4: code bytes with PAD (5) turned into 0x80 (__vcmpeq4 mask)."""
+    eq = sum(np.where(((v >> (8 * n)) & 255) == 5, 255 << (8 * n), 0)
+             for n in range(4))
+    return v ^ (eq & 0x85858585)
+
+
+def _slice16(q4, t4, dcb):
+    """What load_item16 writes to each item's shared memory, from the
+    little-endian words of the packed rows: query code bytes (PAD as 0x80)
+    and per target column the half code | deletion bit << 15, two columns
+    a word (prmt 0x4140 / 0x4342 of the code bytes, del2 of the bits)."""
+    words = lambda a: a.astype(np.uint8).view("<u4").astype(np.int64)
+    qw, tw, dw = words(q4), words(t4), words(dcb)
+    B = q4.shape[0]
+    qs = np.stack([_enc4(x) for x in _unpack8(qw)], -1)  # (B, m_cap/8, 2)
+    qs = qs.astype("<u4").view(np.uint8).reshape(B, -1).astype(np.int64)
+    del2 = lambda d: ((d & 1) << 15) | ((d & 2) << 30)
+    lo, hi = (_enc4(x) for x in _unpack8(tw))  # codes 8y..+3, 8y+4..+7
+    # word y of a 32-column chunk holds columns 8y .. 8y + 7 of it
+    bits = np.repeat(dw, 4, axis=1) >> (8 * (np.arange(tw.shape[1]) % 4))
+    cs = np.stack([_prmt(lo, 0, 0x4140) | del2(bits),
+                   _prmt(lo, 0, 0x4342) | del2(bits >> 2),
+                   _prmt(hi, 0, 0x4140) | del2(bits >> 4),
+                   _prmt(hi, 0, 0x4342) | del2(bits >> 6)], -1)
+    cs = _u32(cs).reshape(B, -1)                 # two columns a word
+    return qs, np.stack(_halves(cs), -1).reshape(B, -1)
+
+
+def _sweep16_model(q4, t4, dcb, *, m_cap, n_cap, w_band, match, mismatch,
+                   gap, tpi, pairs):
+    """numpy model of nw_sweep16.cu: tpi threads per item, `pairs` s16x2
+    words per thread (the warp kernel: geometry.sweep16_tpi, pairs =
+    W / 2tpi rounded up; the block kernel: tpi = threads per block, one
+    pair), lanes from W to 2 pairs tpi held at neg as pad lanes."""
+    import torch
+
+    W, T, P = w_band, tpi, pairs
+    L, WP = 2 * P, 2 * P * tpi
+    B = q4.shape[0]
+    dt, neg, fill_v = geometry.dp_consts(m_cap, n_cap, match, mismatch, gap)
+    assert dt == torch.int16
+    dlo = geometry.band_dlo(m_cap, n_cap, W)
+    qs, cs = _slice16(q4, t4, dcb)
+    span = geometry.scan_span(W)
+    k = np.arange(WP)
+    k0 = L * np.arange(T)[None, :]               # (1, T)
+    pad_thread = k0 + L > W
+
+    def col_at(j):
+        return np.where((j >= 0) & (j < n_cap),
+                        cs[:, np.clip(j, 0, n_cap - 1)], 0x80)
+
+    def pairs_of(lanes):                          # (B, WP) -> (B, T, P)
+        return _pair(lanes[..., 0::2], lanes[..., 1::2]).reshape(B, T, P)
+
+    bits = (cs >> 15) & 1
+    gcp = np.concatenate([np.zeros((B, 1), np.int64),
+                          np.cumsum(bits * gap, 1)], 1)
+    jz = dlo + k
+    g = np.where(jz > 0, gcp[:, np.clip(jz, 0, n_cap)], 0)
+    gc = pairs_of(g)
+    hp = pairs_of(np.where((k < W) & (jz >= 0) & (jz <= n_cap), g, neg))
+    col = pairs_of(col_at(jz - 1))
+    fill = pairs_of(np.broadcast_to(np.where(k <= span - 2, fill_v, -32768),
+                                    (B, WP)))
+    acc = np.zeros((B, T, P), np.int64)
+    lo8 = np.zeros_like(acc)
+    match2, mis2, gap2, neg2 = (_dup16(x) for x in (match, mismatch, gap,
+                                                    neg))
+    moves = np.zeros((B, m_cap // 16, WP), np.int64)
+    for i in range(1, m_cap + 1):
+        q2 = qs[:, i - 1][:, None] * 0x00010001
+        jb = i + dlo + k0                          # (1, T)
+        edge = (pad_thread | (jb < 1) | (jb + L - 1 > n_cap))[:, :, None]
+        mine = _prmt(col[:, :, 0], hp[:, :, 0], 0x5410)
+        nb = np.concatenate([mine[:, 1:], mine[:, -1:]], 1)  # shfl_down 1
+        top = np.arange(T) == T - 1
+        col_in = np.where(top, col_at(np.full(1, i + dlo + WP - 2))[:, :1],
+                          nb)
+        above = np.empty_like(hp)
+        above[:, :, :-1] = _prmt(hp[:, :, :-1], hp[:, :, 1:], 0x5432)
+        above[:, :, -1] = _prmt(hp[:, :, -1], np.where(top, neg2, nb),
+                                0x7632)
+        col = np.concatenate([_prmt(col[:, :, :-1], col[:, :, 1:], 0x5432),
+                              _prmt(col[:, :, -1:], col_in[:, :, None],
+                                    0x5432)], 2)
+        gc = _vadd2(gc, _prmt(col, 0, 0xBB99) & gap2)
+        x = (col ^ q2[:, :, None]) & 0x00870087
+        ne = _prmt(_u32(x + 0x7FFF7FFF), 0, 0xBB99)
+        one_pad = _prmt(x, 0, 0xAA88)
+        sub = (one_pad & neg2) | (~one_pad & ((ne & mis2) | (~ne & match2)))
+        diag = _vadd2(hp, _u32(sub))
+        up = _vadd2(above, gap2)
+        a = _vmaxs2(diag, up)
+        # the edge branch: masks of the thread's lanes
+        j = (jb[:, :, None] + np.arange(L)).reshape(1, T, P, 2)
+        padl = (k0[:, :, None] + np.arange(L)).reshape(1, T, P, 2) >= W
+        half = lambda m: _pair(np.where(m[..., 0], _M16, 0),
+                               np.where(m[..., 1], _M16, 0))
+        out = np.where(edge, half(padl | (j < 0) | (j > n_cap)), 0)
+        zero = np.where(edge, half(~padl & (j == 0)), 0)
+        inv = np.where(edge, half(padl | (j < 1) | (j > n_cap)), 0)
+        a = (a & ~zero) | (_dup16(i * gap) & zero)
+        a = (a & ~out) | (neg2 & out)
+        a = _vsub2(a, gc)
+        # the thread's halves, then the thread totals, then the prefix
+        a[:, :, 0] = _vmaxs2(a[:, :, 0], _prmt(a[:, :, 0], 0, 0x1010))
+        for v in range(1, P):
+            a[:, :, v] = _vmaxs2(a[:, :, v], _prmt(a[:, :, v], 0, 0x1010),
+                                 _prmt(a[:, :, v - 1], 0, 0x3232))
+        tot = np.maximum.accumulate(_s16(a[:, :, -1] >> 16), axis=1)
+        pre = np.concatenate([np.full((B, 1), 0x80008000),
+                              _dup16(tot[:, :-1])], 1)
+        h = _vadd2(_vmaxs2(a, pre[:, :, None], fill), gc)
+        h = (h & ~out) | (neg2 & out)
+        xd = h ^ diag
+        mv = _vminu2(xd, 0x00010001) + _vminu2(xd, h ^ up, 0x00010001)
+        mv |= inv & 0x00030003
+        p = (i - 1) % 16
+        acc = _u32(acc + mv * (1 << (2 * (p % 8))))
+        hp = h
+        if p == 7:
+            lo8, acc = acc, np.zeros_like(acc)
+        elif p == 15:
+            w = np.stack([_prmt(lo8, acc, 0x5410), _prmt(lo8, acc, 0x7632)],
+                         -1)
+            moves[:, (i - 1) // 16] = w.reshape(B, WP)
+            acc = np.zeros_like(acc)
+    lanes = np.stack(_halves(hp), -1).reshape(B, WP)
+    moves = moves[:, :, :W]
+    moves = np.where(moves >= 2 ** 31, moves - 2 ** 32, moves)
+    return moves.astype(np.int32), _s16(lanes[:, n_cap - m_cap - dlo]).astype(
+        np.int32)
+
+
+@pytest.mark.parametrize("cap,w,tpi,pairs,scores", [
+    (256, 128, 16, 4, (5, -4, -8)),    # K1's (256,128), two items a warp
+    (640, 128, 16, 4, (5, -4, -8)),    # K1's (640,128)
+    (384, 192, 32, 3, (5, -4, -8)),    # one warp an item, three pairs
+    (512, 256, 32, 4, (3, -5, -4)),    # W = 256 (eligible at cmax 5)
+    (256, 96, 32, 2, (5, -4, -8)),     # pad lanes: whole threads
+    (320, 160, 32, 3, (5, -4, -8)),    # pad lanes inside a thread
+    (256, 32, 32, 1, (5, -4, -8)),
+    (1024, 512, 256, 1, (0, -1, -1)),  # the block kernel at K2's W = 512
+    (768, 288, 160, 1, (5, -4, -8)),   # the block kernel with pad lanes
+])
+def test_sweep16_model_matches_plain(monkeypatch, cap, w, tpi, pairs,
+                                     scores):
+    """The int16 kernels' packed layout against nw_sweep_plain under
+    RACON_TPU_DP16=1 (int16 H), at the warp kernel's shapes (16 threads
+    an item at W = 128, 32 elsewhere) and the block kernel's (one pair a
+    thread), with make_batch's all-PAD
+    and out-of-band items and 30% free deletion columns."""
+    monkeypatch.setenv("RACON_TPU_DP16", "1")
+    assert geometry.sweep_dp16(cap, cap, w, *scores)
+    assert (tpi, pairs) == (geometry.sweep16_threads(w), -(-w // (2 * tpi)))
+    rng = np.random.default_rng(cap + 7 * w + tpi)
+    q8, t8, dc8, m, n = make_batch(rng, 12, cap, scores[2])
+    q4, t4, dcb = pack_codes4(q8), pack_codes4(t8), pack_delbits(dc8)
+    b = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap, device="cpu")
+    geo = dict(m_cap=cap, n_cap=cap, w_band=w, match=scores[0],
+               mismatch=scores[1], gap=scores[2])
+    want_mv, want_sc = port.nw_sweep_plain(b.q4, b.t4, b.dcb, **geo)
+    got_mv, got_sc = _sweep16_model(b.q4.numpy(), b.t4.numpy(),
+                                    b.dcb.numpy(), **geo, tpi=tpi,
+                                    pairs=pairs)
+    assert np.array_equal(got_mv, want_mv.numpy())
+    assert np.array_equal(got_sc, want_sc.numpy())
+
+
+def test_slice16_bytes():
+    """Shared memory of one int16 item: query code bytes with PAD as 0x80,
+    and per column the half code | deletion bit << 15."""
+    rng = np.random.default_rng(6)
+    q8 = rng.integers(0, 6, (3, 64)).astype(np.int8)
+    t8 = rng.integers(0, 6, (3, 128)).astype(np.int8)
+    dc8 = np.where(rng.random((3, 128)) < 0.5, -8, 0).astype(np.int8)
+    qs, cs = _slice16(pack_codes4(q8), pack_codes4(t8), pack_delbits(dc8))
+    q8, t8 = q8.astype(np.int64), t8.astype(np.int64)
+    assert np.array_equal(qs, np.where(q8 == PAD, 0x80, q8))
+    assert np.array_equal(cs, np.where(t8 == PAD, 0x80, t8)
+                          | ((dc8 != 0) << 15))
