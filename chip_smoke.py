@@ -14,8 +14,11 @@ Phases (each must pass, or the script exits non-zero):
      main paths' shapes, byte for byte, with CUDA-event times: the sweep,
      RLE walk and rows walk at (640,128) and (5120,1024) (with the two
      walks' payload bytes and host decode times), the Myers sweep and walk
-     at (2560,512), (10240,1024) and the align stage's own chunk there
-     (409 items, the first 8 checked), the wide sweep and packed2 walk at
+     at (2560,512) B = 1024, (10240,1024) B = 8 and there at the align
+     stage's former chunk (409 items) and its chunk now (1024; each with
+     8 items spread over the launch, an escape, an all-PAD item and the
+     last checked; the sweep's us an item and share of its bound), the
+     RLE walk at (640,128) B = 4097, the wide sweep and packed2 walk at
      (10240,2048) and (10240,4096), the times of one chunk at
      (10240,2048) and (40960,4096), the align stage's scored route at
      (10240,1024): sweep, RLE and rows walk at 0/-1/-1 with unit
@@ -35,10 +38,12 @@ Phases (each must pass, or the script exits non-zero):
   4. the default polish path end to end (the CLI's arguments `--backend
      cuda -m 5 -x -4 -g -8 -t <cores>`, then create_polisher ->
      initialize -> polish) on testing.synth.make_dataset (4.6 Mb, 20x 8 kb
-     reads, 12% error, seed 11): identity to the truth must be >= 99.99%,
-     and the warp sweep, RLE walk and both Myers kernels must have
-     launched; then the same under RACON_TPU_DP16=1, whose FASTA must be
-     byte-equal and which must launch the int16 sweep; then initialize
+     reads, 12% error, seed 11; the peak device memory of initialize()
+     and the polished contig's sha256 are printed): identity to the truth
+     must be >= 99.99%, and the warp sweep, RLE walk and both Myers
+     kernels must have launched; then the same under RACON_TPU_DP16=1,
+     whose FASTA must be byte-equal and which must launch the int16
+     sweep; then initialize
      and polish once more, each under torch.profiler, with and without
      RACON_TPU_DP16=1: device busy and time per kernel;
   5. the wide-band slice end to end: the same path with `-w 10000` on
@@ -78,6 +83,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import hashlib
 import io
 import json
 import os
@@ -115,7 +121,8 @@ KERNELS = {  # name -> (source, TPU kernel or jnp routine it replaces)
 }
 # sources whose ptxas report (registers, spills) phase 1 prints
 PTXAS_SOURCES = ("nw_sweep.cu", "nw_sweep16.cu", "rows_walk.cu",
-                 "nw_sweep_t.cu", "myers_walk.cu")
+                 "nw_sweep_t.cu", "myers_walk.cu", "myers_sweep.cu",
+                 "rle_walk.cu")
 
 # Least-time model of one H100 SXM: 3.35 TB/s of HBM (NVIDIA data sheet)
 # and 16.73 Tops/s of INT32 (132 SMs x 64 INT32 lanes x 1.98 GHz boost:
@@ -412,6 +419,7 @@ def _decode_ms(fmt, payload, cap, W, m, n, threads):
 def phase_kernels(results, threads):
     """Phase 2: each kernel vs its plain version at main-path shapes."""
     import numpy as np
+    import torch
 
     from racon_tpu_torch.ops import myers_kernel as mk
     from racon_tpu_torch.ops import nw_kernel as nk
@@ -419,7 +427,8 @@ def phase_kernels(results, threads):
     from racon_tpu_torch.ops.align_stage import _chunk_size
     from racon_tpu_torch.ops.batch import to_device
     from racon_tpu_torch.ops.consensus_stage import chunk_size
-    from racon_tpu_torch.ops.geometry import myers_walk_launch, sweep_kernel
+    from racon_tpu_torch.ops.geometry import (myers_sweep_launch,
+                                              myers_walk_launch, sweep_kernel)
 
     t0 = time.perf_counter()
     if loader.get() is None:
@@ -545,33 +554,42 @@ def phase_kernels(results, threads):
     scored(10240, 2048, 16, 700, ("packed2",), rng, consensus)
     chunk(10240, 2048, 700, rng, False)
 
-    def myers(cap, W, B, rng, check):
-        """Both Myers kernels at one shape; the first `check` items (all
-        when None) against the plain versions."""
+    def myers(cap, W, B, rng, sample, tag="", main=False):
+        """Both Myers kernels at one shape; every item (sample None) or
+        `sample` items spread over the launch, with item 3 (out of the
+        band), item 6 (all PAD) and the last, against the plain
+        versions, every word of their planes. `main`: the main path's
+        shape, whose numbers fill the contract keys."""
         geo = dict(m_cap=cap, n_cap=cap, w_band=W)
         q4, t4, _, m, n = make_items(rng, B, cap, W, -1)
         gpu = to_device(q4, t4, None, m, n, m_cap=cap, n_cap=cap,
                         device="cuda")
-        c = B if check is None else check
-        cpu = to_device(q4[:c], t4[:c], None, m[:c], n[:c], m_cap=cap,
+        idx = np.arange(B) if sample is None else np.unique(np.r_[
+            np.linspace(0, B - 1, sample).astype(int), 3, 6, B - 1])
+        cpu = to_device(q4[idx], t4[idx], None, m[idx], n[idx], m_cap=cap,
                         n_cap=cap, device="cpu")
+        sel = torch.from_numpy(idx).cuda()
         planes = mk.myers_sweep(gpu.q4, gpu.t4, **geo)
         payload = mk.myers_walk(planes, gpu.m, gpu.n, **geo)
         pl, sweep_plain = host_ms(lambda: mk.myers_sweep_plain(
             cpu.q4, cpu.t4, **geo))
         pp, walk_plain = host_ms(lambda: mk.myers_walk_plain(
             pl, cpu.m, cpu.n, **geo))
-        err = compare("myers_sweep planes", planes[:c], pl)
-        werr = compare("myers_walk payload", payload[:c], pp)
+        err = compare("myers_sweep planes", planes[sel], pl)
+        werr = compare("myers_walk payload", payload[sel], pp)
         sweep = cuda_ms(lambda: mk.myers_sweep(gpu.q4, gpu.t4, **geo))
         wms = cuda_ms(lambda: mk.myers_walk(planes, gpu.m, gpu.n, **geo))
         esc = int(payload[:, -1].sum())
-        which = "" if check is None else f" (first {c} items checked)"
-        log(f"[kernels] myers ({cap},{W}) B={B}: byte-equal{which}, {esc} "
-            f"escapes; sweep {sweep:.3f} ms (plain CPU {sweep_plain:.1f} "
-            f"ms), walk {wms:.3f} ms (plain CPU {walk_plain:.1f} ms)")
+        which = ("" if sample is None else
+                 f" (items {','.join(map(str, idx))} checked)")
         nbytes = B * (cap // 2 + cap // 2) + B * cap * 2 * (W // 32) * 4
         bs, bys = bound(nbytes, B * cap * (W // 32) * OPS_MYERS_WORD)
+        log(f"[kernels] myers ({cap},{W}) B={B}{tag}: byte-equal{which}, "
+            f"{esc} escapes; sweep {sweep:.3f} ms = {1e3 * sweep / B:.3f} "
+            f"us an item, {100 * bs / sweep:.1f} % of its bound {bs:.3f} ms "
+            f"by {bys} ({myers_sweep_launch(B, cap, W)[0]} blocks; plain "
+            f"CPU {sweep_plain:.1f} ms), walk {wms:.3f} ms (plain CPU "
+            f"{walk_plain:.1f} ms)")
         # the walk needs two plane words per query row it passes; reading
         # whole rows (2 W/32 words each) moves the planes once
         rows = int(np.asarray(m).sum())
@@ -587,17 +605,25 @@ def phase_kernels(results, threads):
                 ("myers_walk", dict(max_abs_err=werr, ms=wms,
                                     plain_ms=walk_plain, bound_ms=bw,
                                     bound_by=byw))):
-            if check is not None:
-                numbers["plain_items"] = c
+            if sample is not None:
+                numbers["plain_items"] = idx.tolist()
             shape(name, cap, W, B, align, **numbers)
+            if main:
+                results[name].update(numbers)
+        results["myers_sweep"]["shapes"][-1].update(
+            us_per_item=1e3 * sweep / B, bound_share=bs / sweep,
+            blocks=myers_sweep_launch(B, cap, W)[0])
         results["myers_walk"]["shapes"][-1].update(
             whole_rows_ms=rows_ms, blocks=myers_walk_launch(B, W)[0])
 
     myers(2560, 512, 1024, rng, None)
     myers(10240, 1024, 8, rng, None)
-    # the align stage's own chunk at its main tier (29 such launches per
-    # initialize() at 4.6 Mb)
-    myers(10240, 1024, _chunk_size(10240, 1024), rng, 8)
+    # at its main tier the align stage's chunk was 409 items (29 launches
+    # per initialize() at 4.6 Mb) until its planes budget replaced the
+    # move budget; its chunk now is _chunk_size's (12 launches of ~959)
+    myers(10240, 1024, 409, rng, 8, " (the former align chunk)")
+    myers(10240, 1024, _chunk_size(10240, 1024, True), rng, 8,
+          " (the align chunk)", main=True)
     # the align stage's scored route (RACON_TPU_MYERS=0) at a W <= 1024
     # tier and at W = 4096, on its own seed so that the shapes above keep
     # their inputs
@@ -610,6 +636,9 @@ def phase_kernels(results, threads):
     rng1 = np.random.default_rng(256)
     scored(256, 128, 4097, None, ("rle",), rng1, consensus)
     scored(1280, 256, 1024, None, ("rle",), rng1, consensus)
+    # the RLE walk's main shape with a ragged last block (B % 32 == 1)
+    scored(640, 128, 4097, None, ("rle",), np.random.default_rng(4097),
+           consensus)
 
 
 def phase_kernels16(results):
@@ -753,7 +782,10 @@ def phase_bench(threads, results):
 def _polish_cli(tag, wd, argv):
     """The CLI's own argument path (raconx-torch ...), then
     create_polisher -> initialize -> polish with the counts reset just
-    before. Returns (polisher, polished contigs, launches, seconds)."""
+    before; the peak device memory of initialize(). Returns (polisher,
+    polished contigs, launches)."""
+    import torch
+
     from racon_tpu_torch import cli
     from racon_tpu_torch.kernels import LAUNCHES, reset_launches
     from racon_tpu_torch.polisher import create_polisher
@@ -763,11 +795,13 @@ def _polish_cli(tag, wd, argv):
                   ("reads.fasta", "ovl.paf", "draft.fasta"))])
     cfg = cli.make_config(args)
     reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     with contextlib.redirect_stderr(io.StringIO()):
         p = create_polisher(*args.inputs, cfg)
         p.initialize()
         t1 = time.perf_counter()
+        peak = torch.cuda.max_memory_allocated()
         out = p.polish(drop_unpolished_sequences=True)
     t2 = time.perf_counter()
     counts = dict(LAUNCHES)
@@ -775,9 +809,9 @@ def _polish_cli(tag, wd, argv):
     a = p.align_stage.stats
     c = p.consensus_stage.prof
     c_total = c["device_items"] + c["host_items"] - c["escaped_items"]
-    log(f"[{tag}] initialize {t1 - t0:.3f} s, polish {t2 - t1:.3f} s, "
-        f"{n_win} windows = {n_win / (t2 - t1):.2f} windows/s; launches "
-        f"{counts}")
+    log(f"[{tag}] initialize {t1 - t0:.3f} s (peak device memory "
+        f"{peak / 2**30:.3f} GiB), polish {t2 - t1:.3f} s, {n_win} windows "
+        f"= {n_win / (t2 - t1):.2f} windows/s; launches {counts}")
     log(f"[{tag}] host realign: align {a['host_items']}/{a['items']} "
         f"overlaps ({100 * a['host_items'] / max(1, a['items']):.3f}%), "
         f"consensus {int(c['host_items'])}/{int(c_total)} item-passes "
@@ -877,6 +911,8 @@ def phase_polish(wd, genome_mb, threads, results):
                                                 str(threads)])
     record_launches(results, "polish_w500", counts)
     ident = _identity("polish", "polished", out[0][1], true)
+    log(f"[polish] polished contig sha256 "
+        f"{hashlib.sha256(out[0][1]).hexdigest()}")
     if ident < 99.99:
         raise SmokeFailure(f"identity {ident:.4f}% < 99.99%")
     mine = ("nw_sweep", "rle_walk", "myers_sweep", "myers_walk")

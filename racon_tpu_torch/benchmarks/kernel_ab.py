@@ -1,0 +1,248 @@
+"""The Myers sweep (K3, kernels/csrc/myers_sweep.cu) and the RLE walk (J1,
+kernels/csrc/rle_walk.cu) of this checkout against those of another
+version of the sources, on one card, timed in turns:
+
+    python -m racon_tpu_torch.benchmarks.kernel_ab OTHER_CSRC [--json PATH]
+
+OTHER_CSRC is a directory holding the other version's myers_sweep.cu,
+rle_walk.cu and common.cuh (for example unpacked with `git archive
+<commit> racon_tpu_torch/kernels/csrc | tar -x`). Both versions are
+built alike, by nvcc into a shared library of their plain C launchers
+bound with ctypes, and fed the same inputs (seed 7: every 7th item all
+PAD, every 11th cut short so that it leaves the band). Per shape: both
+outputs byte for byte on every item, then CUDA-event ms (mean of 5
+launches after a warm-up) in the order other, this, this, other; each
+version's mean, us per item and the share of the bound (the least time,
+as chip_smoke.py computes it: bytes over 3.35 TB/s or INT32 ops over
+16.73 T/s, whichever is larger). Shapes: K3 at (10240,1024) B = 409 (the
+align stage's former chunk) and B = 1024 (its chunk now), (2560,512)
+B = 1024 and (10240,4096) B = 409; J1 at (640,128) B = 4096 and 4097,
+with the steps its items take (one move word each) and the longest
+walk's, and this build's time over that walk's steps.
+
+Needs nvcc and a CUDA device (exit 2 without one). Prints the card's
+name and power limit first and one JSON line last.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "..", "kernels", "csrc")
+SOURCES = ("myers_sweep.cu", "rle_walk.cu")
+ARCH = "-gencode=arch=compute_90a,code=sm_90a"
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+OPS_MYERS_WORD = 20
+OPS_WALK_STEP = 12
+
+
+def build(csrc: str, out: str) -> ctypes.CDLL:
+    """nvcc the two sources of `csrc` into `out` and load it."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    nvcc = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "nvcc")
+    subprocess.run([nvcc, ARCH, "-std=c++17", "-O3", "-shared",
+                    "-Xcompiler", "-fPIC", "-o", out,
+                    *(os.path.join(csrc, s) for s in SOURCES)], check=True)
+    lib = ctypes.CDLL(out)
+    P, I = ctypes.c_void_p, ctypes.c_int
+    lib.rtt_myers_sweep.argtypes = [P] * 3 + [I] * 4 + [P]
+    lib.rtt_rle_walk.argtypes = [P] * 4 + [I] * 5 + [P]
+    lib.rtt_myers_sweep.restype = lib.rtt_rle_walk.restype = I
+    return lib
+
+
+def items(rng, B, cap, w_band):
+    """(q4, t4, m, n) of B mutated read pairs at cap (4 % each of
+    substitutions, insertions and deletions)."""
+    from racon_tpu_torch.ops.geometry import PAD_CODE, encode
+
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    q8 = np.full((B, cap), PAD_CODE, np.uint8)
+    t8 = np.full((B, cap), PAD_CODE, np.uint8)
+    m = np.zeros(B, np.int32)
+    n = np.zeros(B, np.int32)
+    for b in range(B):
+        if b % 7 == 6:
+            continue
+        tl = int(rng.integers(cap // 2, cap))
+        t = rng.choice(acgt, tl)
+        q = t[rng.random(tl) > 0.04]
+        ins = np.flatnonzero(rng.random(len(q)) < 0.04)
+        q = np.insert(q, ins, rng.choice(acgt, len(ins)))
+        sub = rng.random(len(q)) < 0.04
+        q[sub] = rng.choice(acgt, int(sub.sum()))
+        if b % 11 == 3:
+            q = q[: len(q) - w_band]
+        q = q[:cap]
+        q8[b, : len(q)] = encode(q)
+        t8[b, :tl] = encode(t)
+        m[b], n[b] = len(q), tl
+    return (q8[:, 0::2] | (q8[:, 1::2] << 4),
+            t8[:, 0::2] | (t8[:, 1::2] << 4), m, n)
+
+
+def cuda_ms(fn, reps=5):
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def bound_ms(nbytes: float, nops: float) -> tuple[float, str]:
+    tb = 1e3 * nbytes / HBM_BYTES_PER_S
+    to = 1e3 * nops / INT32_OPS_PER_S
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def ptr(t):
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def in_turns(name, shape, B, libs, run, out, bound):
+    """Outputs of both builds byte for byte, then other, this, this,
+    other; one result row."""
+    import torch
+
+    outs = {}
+    for tag, lib in libs.items():
+        out().fill_(0x55)  # a byte either build leaves unwritten differs
+        run(lib)
+        torch.cuda.synchronize()
+        outs[tag] = out().clone()
+    if not torch.equal(outs["this"], outs["other"]):
+        raise SystemExit(f"{name} {shape} B={B}: the two builds differ")
+    times = {"other": [], "this": []}
+    for tag in ("other", "this", "this", "other"):
+        times[tag].append(cuda_ms(lambda: run(libs[tag])))
+    bms, by = bound
+    row = {"kernel": name, "shape": list(shape), "B": B,
+           "bound_ms": bms, "bound_by": by, "byte_equal": True}
+    for tag, ts in times.items():
+        ms = sum(ts) / len(ts)
+        row[tag] = {"ms_runs": ts, "ms": ms, "us_per_item": 1e3 * ms / B,
+                    "bound_share": bms / ms}
+    print(f"{name} {shape} B={B}: other {row['other']['ms']:.4f} ms "
+          f"{times['other']}, this {row['this']['ms']:.4f} ms "
+          f"{times['this']} ({row['other']['ms'] / row['this']['ms']:.2f}x);"
+          f" {row['this']['us_per_item']:.3f} us an item, bound "
+          f"{bms:.4f} ms by {by} ({100 * row['this']['bound_share']:.1f} % "
+          f"of it)", flush=True)
+    return row
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("other", help="directory of the other version's "
+                    "myers_sweep.cu, rle_walk.cu and common.cuh")
+    ap.add_argument("--json", help="also write the result rows here")
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        sys.stderr.write("kernel_ab: no CUDA device\n")
+        return 2
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip(), flush=True)
+    from racon_tpu_torch.ops import nw_kernel as nk
+    from racon_tpu_torch.ops.batch import to_device
+    from racon_tpu_torch.ops.geometry import rle_events
+
+    rows = []
+    with tempfile.TemporaryDirectory() as tmp:
+        libs = {"other": build(args.other, os.path.join(tmp, "other.so")),
+                "this": build(CSRC, os.path.join(tmp, "this.so"))}
+        rng = np.random.default_rng(7)
+        stream = lambda: ctypes.c_void_p(
+            torch.cuda.current_stream().cuda_stream)
+        for cap, W, B in ((10240, 1024, 409), (10240, 1024, 1024),
+                          (2560, 512, 1024), (10240, 4096, 409)):
+            q4, t4, m, n = items(rng, B, cap, W)
+            g = to_device(q4, t4, None, m, n, m_cap=cap, n_cap=cap,
+                          device="cuda")
+            planes = torch.empty((B, cap, 2, W // 32), dtype=torch.int32,
+                                 device="cuda")
+
+            def sweep(lib):
+                rc = lib.rtt_myers_sweep(ptr(g.q4), ptr(g.t4), ptr(planes),
+                                         B, cap, cap, W, stream())
+                if rc:
+                    raise SystemExit(f"rtt_myers_sweep: error {rc}")
+
+            nbytes = B * cap + B * cap * 2 * (W // 32) * 4
+            rows.append(in_turns(
+                "myers_sweep", (cap, W), B, libs, sweep, lambda: planes,
+                bound_ms(nbytes, B * cap * (W // 32) * OPS_MYERS_WORD)))
+            del planes, g
+            torch.cuda.empty_cache()
+        for B in (4096, 4097):
+            cap, W = 640, 128
+            E = rle_events(cap, cap, W)
+            q4, t4, m, n = items(rng, B, cap, W)
+            dcb = np.full((B, cap // 8), 0xB7, np.uint8)
+            g = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap,
+                          device="cuda")
+            moves, _ = nk.nw_sweep(g.q4, g.t4, g.dcb, m_cap=cap, n_cap=cap,
+                                   w_band=W, match=5, mismatch=-4, gap=-8)
+            payload = torch.empty((B, E + 1), dtype=torch.uint8,
+                                  device="cuda")
+
+            def walk(lib):
+                rc = lib.rtt_rle_walk(ptr(moves), ptr(g.m), ptr(g.n),
+                                      ptr(payload), B, cap, cap, W, E,
+                                      stream())
+                if rc:
+                    raise SystemExit(f"rtt_rle_walk: error {rc}")
+
+            # bytes: m and n, the payload, one move word per event pair
+            walk(libs["this"])
+            body = payload[:, :-1].cpu().numpy()
+            nz = body != 0
+            last = np.where(nz.any(1), E - np.argmax(nz[:, ::-1], 1), 0)
+            per_item = (last + 1) // 2
+            steps = int(per_item.sum())
+            row = in_turns(
+                "rle_walk", (cap, W), B, libs, walk, lambda: payload,
+                bound_ms(4 * steps + B * (8 + E + 1),
+                         steps * OPS_WALK_STEP))
+            # a warp runs until its longest walk ends: that walk's chain of
+            # dependent move-word loads sets the kernel's time
+            row.update(steps=steps, max_steps=int(per_item.max()),
+                       ns_per_step_of_longest=1e6 * row["this"]["ms"]
+                       / int(per_item.max()))
+            print(f"rle_walk B={B}: {steps} steps, the longest walk "
+                  f"{row['max_steps']}: "
+                  f"{row['ns_per_step_of_longest']:.1f} ns a step",
+                  flush=True)
+            rows.append(row)
+    line = json.dumps({"device": torch.cuda.get_device_name(0),
+                       "rows": rows})
+    if args.json:
+        with open(args.json, "w") as f:
+            f.write(line + "\n")
+    print(line)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -12,44 +12,221 @@
 // (B, m_cap, 2, nw) uint32 -- the reference's myers_sweep_ref returns the
 // same words as (m_cap, 2, nw, B).
 //
-// Design on the H100: one warp per item, each lane owning WPL consecutive
-// words (WPL = 1 up to W = 1024, 4 at W = 4096). The cross-word carry is a
-// ripple inside a lane plus one warp ballot: with lane-level generate G and
-// propagate P as 32-bit masks, the carries into all lanes are
-// ((G|P) + G) ^ (G|P) ^ G. One-bit shifts cross lanes by shuffle. The
-// item's six Peq planes (n_cap + W + 64 bits each) are built in shared
-// memory from the nibble codes. What bounds it: ~25 dependent integer ops
-// and two shuffles plus a ballot per row -- latency per warp -- and the
-// plane stores (W/4 bytes per row), which are coalesced.
+// Design on the H100: one warp per item and one item per block
+// (geometry.myers_sweep_launch), so the align stage's chunk of up to 1024
+// items covers all 132 SMs. Each lane owns WPL consecutive
+// words (WPL = 1 up to W = 1024, 2 at 2048, 4 at 4096). The item's six
+// Peq planes (n_cap + W + 64 bits each) are built in shared memory from
+// the nibble codes. What bounds it: the per-row dependent chain of the
+// DP state -- latency, at a few warps per SM -- and the plane stores
+// (W/4 bytes a row, coalesced): at (10240,1024) 2.6 MB an item. What the
+// design does about the chain:
+//  - Eq leaves it: the next row's Eq words are loaded and funnel-shifted
+//    while this row's chain runs (a register double buffer). The query
+//    codes sit in registers, one 32-bit word of 8 codes a lane (256 rows
+//    a warp, the next 256 loaded a chunk ahead); a row's code is one
+//    shuffle, also off the chain.
+//  - The band shift is one shuffle, not four. The reference shifts HP
+//    and HN up one bit and then PVn and MVn down one; composed, that is
+//    D0 shifted down: with D0s = D0 >> 1 (bit 31 from the next word's
+//    bit 0), PV' = HN | ~(D0s | HP) and MV' = D0s & HP, the top bit of
+//    the band forced to 1 and 0.
+//  - The cross-word carry is a ripple inside a lane plus one pair of warp
+//    ballots: with lane-level generate G and propagate P as 32-bit masks,
+//    the carries into all lanes are ((G|P) + G) ^ (G|P) ^ G.
+//  - The rows 1..-dlo, where the j = 0 lane lies in the band, run the
+//    masks; the rows below run without them.
+// Words at or above nw (W < 1024 leaves lanes idle; W = 1120 a word)
+// compute garbage that only ever moves up -- carries and ballot bits go
+// toward higher lanes, and the one shuffle feeds the band's top bit,
+// which is forced -- and are never stored.
 #include "common.cuh"
 
 namespace {
 
 using namespace rtt;
 
+constexpr uint32_t kTopBit = 0x80000000u;
+
+// One lane's word of 8 query codes of the 256-row chunk c (rows 256c + 8
+// lane + 1 ..), 0 past the row's m_cap/2 bytes (a multiple of 16).
+__device__ __forceinline__ uint32_t load_codes(const uint8_t* qrow,
+                                               int qbytes, int c, int lane) {
+  const int off = c * 128 + lane * 4;
+  return off < qbytes ? *reinterpret_cast<const uint32_t*>(qrow + off) : 0u;
+}
+
 template <int WPL>
-__global__ void myers_sweep_kernel(const uint8_t* __restrict__ q4,
-                                   const uint8_t* __restrict__ t4,
-                                   uint32_t* __restrict__ planes, int B,
-                                   int m_cap, int n_cap, int W,
-                                   int items_per_block) {
-  extern __shared__ uint32_t peq_all[];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int b = blockIdx.x * items_per_block + warp;
-  if (b >= B) return;  // whole warps only; no block barrier below
-  const int nw = W / 32;
-  const int guard = W / 2 + 32;
-  const int nwp = (n_cap + 2 * guard) / 32;
-  const int dlo = n_cap - m_cap - W / 2;
-  uint32_t* peq = peq_all + static_cast<size_t>(warp) * 6 * nwp;
+struct SweepState {
+  uint32_t PV[WPL], MV[WPL];
+  uint32_t raw[WPL + 1];  // Peq words of the current row's Eq window
+  int code1;              // query code of the next row
+  uint32_t qcur;          // codes of the current 256-row chunk (8 a lane)
+  uint32_t qnxt;          // codes of the chunk after it
+};
+
+struct SweepGeo {
+  const uint32_t* peq;  // the item's six Peq planes (shared memory)
+  const uint8_t* qrow;  // the item's query codes (global memory)
+  uint32_t* out;        // the item's planes (global memory)
+  int nwp, nw, qbytes, dlo, guard, lane;
+};
+
+// Query code r (row r + 1) from the chunk the lane words hold.
+__device__ __forceinline__ int code_at(uint32_t qcur, int r) {
+  return (__shfl_sync(kFull, qcur, (r >> 3) & 31) >> (4 * (r & 7))) & 15;
+}
+
+// The lane's WPL Peq words, and the one above them, of row i's Eq window
+// (at bit i + dlo - 1 + guard) in the plane of code c; codes past 5 read
+// nothing. Rows past m_cap read code 0 in range: the window's top word
+// stays below peq_words.
+template <int WPL>
+__device__ __forceinline__ void load_window(uint32_t (&raw)[WPL + 1],
+                                            const SweepGeo& g, int c, int i) {
+  const uint32_t* plane =
+      g.peq + c * g.nwp + ((i + g.dlo - 1 + g.guard) >> 5);
+  const int w0 = g.lane * WPL;
+#pragma unroll
+  for (int x = 0; x <= WPL; ++x)
+    raw[x] = (c < 6 && w0 + x <= g.nw) ? plane[w0 + x] : 0u;
+}
+
+// Row i of the sweep, software-pipelined: it funnel-shifts the Eq words
+// loaded by the row before, loads row i + 1's and shuffles out row
+// i + 2's query code -- each consumed an iteration later, so no load or
+// shuffle result is waited for inside the row -- then runs the DP chain.
+// EDGE: the j = 0 lane kz = -(i + dlo) may lie at or above band lane 0
+// (rows i <= -dlo), so the keep mask and the boundary fix apply; below,
+// both are identities and are left out.
+template <int WPL, bool EDGE>
+__device__ __forceinline__ void sweep_row(SweepState<WPL>& st,
+                                          const SweepGeo& g,
+                                          const uint32_t (&top)[WPL],
+                                          int i) {
+  const int r = (i + g.dlo - 1 + g.guard) & 31;
+  const int w0 = g.lane * WPL;
+  uint32_t eq[WPL];
+#pragma unroll
+  for (int x = 0; x < WPL; ++x)
+    eq[x] = w0 + x < g.nw ? __funnelshift_r(st.raw[x], st.raw[x + 1], r)
+                          : 0u;
+  load_window<WPL>(st.raw, g, st.code1, i + 1);
+  if (((i + 1) & 255) == 0) {  // row i + 2 opens the next chunk
+    st.qcur = st.qnxt;
+    st.qnxt = load_codes(g.qrow, g.qbytes, ((i + 1) >> 8) + 1, g.lane);
+  }
+  st.code1 = code_at(st.qcur, i + 1);
+  const int kz = -(i + g.dlo);
+  uint32_t oh[WPL];
+  if constexpr (EDGE) {
+#pragma unroll
+    for (int x = 0; x < WPL; ++x) {
+      const int w = g.lane * WPL + x;
+      const uint32_t keep = mask_ge(kz + 1, w);
+      st.PV[x] &= keep;
+      st.MV[x] &= keep;
+      eq[x] &= keep;
+      oh[x] = onehot(kz, w);
+    }
+  }
+  uint32_t X[WPL], S[WPL];
+  bool gx[WPL], px[WPL];
+  bool G = false;
+  bool P = true;
+#pragma unroll
+  for (int x = 0; x < WPL; ++x) {
+    X[x] = eq[x] | st.MV[x];
+    const uint32_t xp = X[x] & st.PV[x];
+    S[x] = xp + st.PV[x];
+    gx[x] = S[x] < xp;
+    px[x] = S[x] == kFull;
+    G = gx[x] || (px[x] && G);
+    P = P && px[x];
+  }
+  // carries into every lane in one add over the lane masks
+  const uint32_t Gm = __ballot_sync(kFull, G);
+  const uint32_t Am = Gm | __ballot_sync(kFull, P);
+  bool c = (((Am + Gm) ^ Am ^ Gm) >> g.lane) & 1u;
+  uint32_t D0[WPL], HP[WPL], HN[WPL];
+#pragma unroll
+  for (int x = 0; x < WPL; ++x) {
+    const uint32_t s = S[x] + (c ? 1u : 0u);
+    c = gx[x] || (px[x] && c);
+    D0[x] = (s ^ st.PV[x]) | X[x];
+    HN[x] = st.PV[x] & D0[x];
+    HP[x] = st.MV[x] | ~(st.PV[x] | D0[x]);
+    if constexpr (EDGE) {
+      HP[x] |= oh[x];
+      HN[x] &= ~oh[x];
+    }
+  }
+  // the band shift: D0 one bit down, bit 31 from the next word's bit 0
+  const uint32_t d0_above = __shfl_down_sync(kFull, D0[0], 1);
+#pragma unroll
+  for (int x = 0; x < WPL; ++x) {
+    const uint32_t next = x < WPL - 1 ? D0[x + 1 < WPL ? x + 1 : x]
+                                      : d0_above;
+    const uint32_t D0s = __funnelshift_r(D0[x], next, 1);
+    st.PV[x] = (HN[x] | ~(D0s | HP[x])) | top[x];
+    st.MV[x] = D0s & HP[x] & ~top[x];
+  }
+  // this row's DIAG and UP words, coalesced across the warp
+  uint32_t* orow = g.out + static_cast<size_t>(i - 1) * 2 * g.nw;
+  uint32_t diag[WPL];
+#pragma unroll
+  for (int x = 0; x < WPL; ++x) diag[x] = eq[x] | ~D0[x];
+  // vector stores where both planes' rows stay 8- or 16-byte aligned
+  if constexpr (WPL == 4) {
+    if ((g.nw & 3) == 0 && w0 + 4 <= g.nw) {
+      *reinterpret_cast<uint4*>(orow + w0) =
+          make_uint4(diag[0], diag[1], diag[2], diag[3]);
+      *reinterpret_cast<uint4*>(orow + g.nw + w0) =
+          make_uint4(HP[0], HP[1], HP[2], HP[3]);
+      return;
+    }
+  } else if constexpr (WPL == 2) {
+    if ((g.nw & 1) == 0 && w0 + 2 <= g.nw) {
+      *reinterpret_cast<uint2*>(orow + w0) = make_uint2(diag[0], diag[1]);
+      *reinterpret_cast<uint2*>(orow + g.nw + w0) = make_uint2(HP[0], HP[1]);
+      return;
+    }
+  }
+#pragma unroll
+  for (int x = 0; x < WPL; ++x) {
+    if (w0 + x < g.nw) {
+      orow[w0 + x] = diag[x];
+      orow[g.nw + w0 + x] = HP[x];
+    }
+  }
+}
+
+template <int WPL>
+__global__ void __launch_bounds__(32)
+    myers_sweep_kernel(const uint8_t* __restrict__ q4,
+                       const uint8_t* __restrict__ t4,
+                       uint32_t* __restrict__ planes, int m_cap, int n_cap,
+                       int W) {
+  extern __shared__ uint32_t peq[];
+  const int lane = threadIdx.x;
+  const int b = blockIdx.x;
+  SweepGeo g;
+  g.nw = W / 32;
+  g.guard = W / 2 + 32;
+  g.nwp = (n_cap + 2 * g.guard) / 32;
+  g.dlo = n_cap - m_cap - W / 2;
+  g.qbytes = m_cap / 2;
+  g.lane = lane;
+  g.peq = peq;
+  g.qrow = q4 + static_cast<size_t>(b) * g.qbytes;
+  g.out = planes + static_cast<size_t>(b) * m_cap * 2 * g.nw;
 
   // Peq planes: bit p of plane c = [t[p - guard] == c]
   const uint8_t* trow = t4 + static_cast<size_t>(b) * (n_cap / 2);
-  for (int p = lane; p < nwp; p += 32) {
+  for (int p = lane; p < g.nwp; p += 32) {
     uint32_t acc[6] = {0, 0, 0, 0, 0, 0};
     for (int bit = 0; bit < 32; ++bit) {
-      const int pos = 32 * p + bit - guard;
+      const int pos = 32 * p + bit - g.guard;
       if (pos < 0 || pos >= n_cap) continue;
       const int c = nib(trow, pos);
 #pragma unroll
@@ -57,128 +234,46 @@ __global__ void myers_sweep_kernel(const uint8_t* __restrict__ q4,
         acc[cc] |= static_cast<uint32_t>(c == cc) << bit;
     }
 #pragma unroll
-    for (int cc = 0; cc < 6; ++cc) peq[cc * nwp + p] = acc[cc];
+    for (int cc = 0; cc < 6; ++cc) peq[cc * g.nwp + p] = acc[cc];
   }
   __syncwarp();
 
-  uint32_t PV[WPL], MV[WPL];
+  SweepState<WPL> st;
+  uint32_t top[WPL];
 #pragma unroll
   for (int x = 0; x < WPL; ++x) {
     const int w = lane * WPL + x;
-    PV[x] = w < nw ? mask_ge(-dlo, w) : 0u;
-    MV[x] = 0u;
+    st.PV[x] = w < g.nw ? mask_ge(-g.dlo, w) : 0u;
+    st.MV[x] = 0u;
+    top[x] = w == g.nw - 1 ? kTopBit : 0u;
   }
-  const uint8_t* qrow = q4 + static_cast<size_t>(b) * (m_cap / 2);
-  uint32_t* out = planes + static_cast<size_t>(b) * m_cap * 2 * nw;
-
-  for (int i = 1; i <= m_cap; ++i) {
-    const int qc = nib(qrow, i - 1);
-    const int kz = -(i + dlo);
-    const int pos0 = i + dlo - 1 + guard;
-    const int w0 = pos0 >> 5;
-    const int r = pos0 & 31;
-    const uint32_t* plane = peq + qc * nwp + w0;
-
-    uint32_t eq[WPL], X[WPL], S[WPL];
-    bool gx[WPL], px[WPL];
-    bool G = false;
-    bool P = true;
-#pragma unroll
-    for (int x = 0; x < WPL; ++x) {
-      const int w = lane * WPL + x;
-      uint32_t e = 0u;
-      if (w < nw && qc < 6) {
-        const uint32_t lo = plane[w];
-        const uint32_t hi = plane[w + 1];
-        e = r ? ((lo >> r) | (hi << (32 - r))) : lo;
-      }
-      const uint32_t keep = w < nw ? mask_ge(kz + 1, w) : 0u;
-      PV[x] &= keep;
-      MV[x] &= keep;
-      eq[x] = e & keep;
-      X[x] = eq[x] | MV[x];
-      const uint32_t xp = X[x] & PV[x];
-      S[x] = xp + PV[x];
-      gx[x] = S[x] < xp;
-      px[x] = S[x] == kFull;
-      G = gx[x] || (px[x] && G);
-      P = P && px[x];
-    }
-    if (lane * WPL >= nw) G = P = false;
-    // carries into every lane in one add over the lane masks
-    const uint32_t Gm = __ballot_sync(kFull, G);
-    const uint32_t Am = Gm | __ballot_sync(kFull, P);
-    bool c = (((Am + Gm) ^ Am ^ Gm) >> lane) & 1u;
-    uint32_t D0[WPL], HP[WPL], HN[WPL];
-#pragma unroll
-    for (int x = 0; x < WPL; ++x) {
-      const int w = lane * WPL + x;
-      const uint32_t s = S[x] + (c ? 1u : 0u);
-      c = gx[x] || (px[x] && c);
-      D0[x] = (s ^ PV[x]) | X[x];
-      HN[x] = PV[x] & D0[x];
-      HP[x] = MV[x] | ~(PV[x] | D0[x]);
-      const uint32_t oh = onehot(kz, w);
-      HP[x] |= oh;
-      HN[x] &= ~oh;
-    }
-    // one-bit shifts toward higher bits (bit 0 of word 0 filled with 0)
-    const uint32_t hp_below = __shfl_up_sync(kFull, HP[WPL - 1], 1);
-    const uint32_t hn_below = __shfl_up_sync(kFull, HN[WPL - 1], 1);
-    uint32_t PVn[WPL], MVn[WPL];
-#pragma unroll
-    for (int x = 0; x < WPL; ++x) {
-      const uint32_t hp_prev = x > 0 ? HP[x - 1] : (lane ? hp_below : 0u);
-      const uint32_t hn_prev = x > 0 ? HN[x - 1] : (lane ? hn_below : 0u);
-      const uint32_t X2 = (HP[x] << 1) | (hp_prev >> 31);
-      const uint32_t HNs = (HN[x] << 1) | (hn_prev >> 31);
-      PVn[x] = HNs | ~(D0[x] | X2);
-      MVn[x] = D0[x] & X2;
-    }
-    uint32_t* orow = out + static_cast<size_t>(i - 1) * 2 * nw;
-#pragma unroll
-    for (int x = 0; x < WPL; ++x) {
-      const int w = lane * WPL + x;
-      if (w < nw) {
-        orow[w] = eq[x] | ~D0[x];
-        orow[nw + w] = HP[x];
-      }
-    }
-    // one-bit shift toward lower bits for the next row's band
-    const uint32_t pv_above = __shfl_down_sync(kFull, PVn[0], 1);
-    const uint32_t mv_above = __shfl_down_sync(kFull, MVn[0], 1);
-#pragma unroll
-    for (int x = 0; x < WPL; ++x) {
-      const int w = lane * WPL + x;
-      const uint32_t pv_next = x < WPL - 1 ? PVn[x + 1] : pv_above;
-      const uint32_t mv_next = x < WPL - 1 ? MVn[x + 1] : mv_above;
-      const uint32_t pv_hi = w == nw - 1 ? 1u : (pv_next & 1u);
-      const uint32_t mv_hi = w == nw - 1 ? 0u : (mv_next & 1u);
-      PV[x] = w < nw ? ((PVn[x] >> 1) | (pv_hi << 31)) : 0u;
-      MV[x] = w < nw ? ((MVn[x] >> 1) | (mv_hi << 31)) : 0u;
-    }
-  }
+  st.qcur = load_codes(g.qrow, g.qbytes, 0, lane);
+  st.qnxt = load_codes(g.qrow, g.qbytes, 1, lane);
+  load_window<WPL>(st.raw, g, code_at(st.qcur, 0), 1);
+  st.code1 = code_at(st.qcur, 1);
+  const int edge_rows = min(m_cap, -g.dlo);
+  for (int i = 1; i <= edge_rows; ++i) sweep_row<WPL, true>(st, g, top, i);
+  for (int i = edge_rows + 1; i <= m_cap; ++i)
+    sweep_row<WPL, false>(st, g, top, i);
 }
 
 template <int WPL>
 int launch(const uint8_t* q4, const uint8_t* t4, uint32_t* planes, int B,
            int m_cap, int n_cap, int W, cudaStream_t stream) {
   const int nwp = (n_cap + W + 64) / 32;
-  const size_t per_item = static_cast<size_t>(6) * nwp * 4;
-  if (per_item > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
-  int ipb = static_cast<int>((48 * 1024) / per_item);
-  ipb = ipb > 8 ? 8 : ipb;
-  const int blocks = (B + ipb - 1) / ipb;
-  myers_sweep_kernel<WPL><<<blocks, 32 * ipb, per_item * ipb, stream>>>(
-      q4, t4, planes, B, m_cap, n_cap, W, ipb);
+  const size_t smem = static_cast<size_t>(6) * nwp * 4;
+  if (smem > 48 * 1024) return static_cast<int>(cudaErrorInvalidValue);
+  myers_sweep_kernel<WPL><<<B, 32, smem, stream>>>(q4, t4, planes, m_cap,
+                                                   n_cap, W);
   return RTT_LAUNCH_STATUS();
 }
 
 }  // namespace
 
 // q4 (B, m_cap/2) u8, t4 (B, n_cap/2) u8 -> planes (B, m_cap, 2, W/32)
-// i32. Requires W % 32 == 0, W <= 4096, equal caps (dlo = -W/2), and the
-// Peq mask of one item within 48 KB of shared memory.
+// i32. Requires W % 32 == 0, W <= 4096, equal caps (dlo = -W/2), m_cap a
+// multiple of 32, and the Peq mask of one item within 48 KB of shared
+// memory (geometry.myers_fits).
 extern "C" int rtt_myers_sweep(const uint8_t* q4, const uint8_t* t4,
                                int32_t* planes, int B, int m_cap, int n_cap,
                                int W, cudaStream_t stream) {

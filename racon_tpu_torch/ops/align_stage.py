@@ -44,9 +44,21 @@ _TIERS = ((2560, 512), (10240, 1024), (40960, 1024), (10240, 4096),
 # while the host decodes (the reference bounded this by 4 GB of HBM)
 _MAX_QUEUED = 4
 
+# device bytes of one Myers chunk's DIAG/UP planes (freed once the walk has
+# read them); the scored route keeps the consensus stage's move budget
+_PLANES_BUDGET = 4 << 30
+_MAX_ITEMS = 1024
 
-def _chunk_size(cap: int, band: int) -> int:
-    return chunk_size(cap, band, 1024)
+
+def _chunk_size(cap: int, band: int, myers: bool) -> int:
+    """Items per launch of a tier: on the Myers route as many as the
+    planes budget allows (cap x 2 x band/8 bytes an item: 1024 at
+    (10240,1024), 409 at (40960,1024) and (10240,4096)), on the scored
+    route as many as the move-word budget allows; at most _MAX_ITEMS."""
+    if myers:
+        per_item = cap * 2 * (band // 8)
+        return max(16, min(_MAX_ITEMS, _PLANES_BUDGET // per_item))
+    return chunk_size(cap, band, _MAX_ITEMS)
 
 
 class TorchAlignStage:
@@ -140,7 +152,8 @@ class TorchAlignStage:
             # at call time as the reference does (myers_kernel.py:414-415)
             myers = (os.environ.get("RACON_TPU_MYERS", "1") != "0"
                      and myers_fits(cap, cap, band))
-            for lo, hi in chunk_spans(len(members), _chunk_size(cap, band)):
+            for lo, hi in chunk_spans(len(members),
+                                      _chunk_size(cap, band, myers)):
                 sel = members[lo:hi]
                 while len(pending) >= _MAX_QUEUED:
                     drain_one()

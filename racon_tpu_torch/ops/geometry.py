@@ -117,14 +117,17 @@ def peq_words(n_cap: int, w_band: int) -> int:
     return (n_cap + 2 * guard_bits(w_band)) // 32
 
 
-# Launch geometry of the kernels built around one warp per item; the
-# constants mirror kSweepWarps (kernels/csrc/nw_sweep.cu), kSweep16Warps
-# (kernels/csrc/nw_sweep16.cu) and kWalkWarps, kWalkRows
-# (kernels/csrc/myers_walk.cu).
+# Launch geometry of the kernels built around one warp per item (and of
+# the RLE walk, a warp of items); the constants mirror kSweepWarps
+# (kernels/csrc/nw_sweep.cu), kSweep16Warps (kernels/csrc/nw_sweep16.cu),
+# kWalkWarps, kWalkRows (kernels/csrc/myers_walk.cu) and kWalkItems,
+# kMaxStage (kernels/csrc/rle_walk.cu).
 SWEEP_WARP_MAX_W = 256    # widest band the warp-per-item sweep takes
 SWEEP_WARPS = 4           # items (warps) per block of the warp sweep
 MYERS_WALK_WARPS = 2      # items (warps) per block of the Myers walk
 MYERS_WALK_ROWS = 16      # query rows per cp.async group of the walk
+RLE_WALK_ITEMS = 32       # items (threads) per block of the RLE walk
+SMEM_BLOCK_MAX = 227 * 1024  # shared bytes one block may use (H100)
 
 
 def sweep_lanes(w_band: int) -> int:
@@ -213,6 +216,37 @@ def myers_walk_launch(B: int, w_band: int) -> tuple[int, int, int]:
     return (-(-B // MYERS_WALK_WARPS), 32 * MYERS_WALK_WARPS,
             MYERS_WALK_WARPS * myers_walk_ring(w_band) * 2 * (w_band // 32)
             * 4)
+
+
+def myers_sweep_launch(B: int, n_cap: int,
+                       w_band: int) -> tuple[int, int, int]:
+    """(blocks, threads per block, shared bytes per block) of one Myers
+    sweep launch: one warp and one item a block, with the item's six Peq
+    planes (myers_fits keeps them within 48 KB)."""
+    return B, 32, NW_CODES * peq_words(n_cap, w_band) * 4
+
+
+def _rle_stage_bytes(items: int, max_events: int) -> int:
+    # `items` payload rows of E + 1 bytes, zeroed in whole 16-byte words
+    return (items * (max_events + 1) + 15) // 16 * 16
+
+
+def rle_walk_items(max_events: int) -> int:
+    """Items (threads) per block of the RLE walk: RLE_WALK_ITEMS, or half
+    as many where their staging area would pass SMEM_BLOCK_MAX (E > 7263:
+    the (40960,1024) tier's 10752); 0 where even that does not fit."""
+    for items in (RLE_WALK_ITEMS, RLE_WALK_ITEMS // 2):
+        if _rle_stage_bytes(items, max_events) <= SMEM_BLOCK_MAX:
+            return items
+    return 0
+
+
+def rle_walk_launch(B: int, max_events: int) -> tuple[int, int, int]:
+    """(blocks, threads per block, shared bytes per block) of one RLE walk
+    launch: one warp a block, rle_walk_items items each, and their payload
+    rows staged in shared memory."""
+    items = rle_walk_items(max_events)
+    return (-(-B // items), 32, _rle_stage_bytes(items, max_events))
 
 
 def sweep_fits(m_cap: int, n_cap: int, w_band: int) -> bool:

@@ -159,8 +159,8 @@ def test_sweep_and_packed_walk_match_plain(gpu, cap, w):
                                            (10240, 1024, 409, 8)])
 def test_myers_sweep_and_walk_match_plain(gpu, cap, w, B, check):
     """Ragged batches (the walk's last block runs one warp), and the
-    align stage's chunk at (10240, 1024), 409 items, whose first `check`
-    items are held against the plain versions."""
+    align stage's former chunk at (10240, 1024), 409 items, whose first
+    `check` items are held against the plain versions."""
     q4, t4, _, m, n = _packed(cap + w, B, cap, w)
     geo = dict(m_cap=cap, n_cap=cap, w_band=w)
     g = to_device(q4, t4, None, m, n, m_cap=cap, n_cap=cap, device=gpu)
@@ -175,6 +175,57 @@ def test_myers_sweep_and_walk_match_plain(gpu, cap, w, B, check):
     assert torch.equal(planes[:check].cpu(), pl)
     assert torch.equal(payload[:check].cpu(),
                        mk.myers_walk_plain(pl, c.m, c.n, **geo))
+
+
+@pytest.mark.parametrize("cap,w,B,sample", [(2560, 512, 1024, None),
+                                            (10240, 1024, 1024, 8)])
+def test_myers_sweep_full_grid_matches_plain(gpu, cap, w, B, sample):
+    """The sweep at a full align chunk, one item a block: every item at
+    (2560,512); at (10240,1024) `sample` items spread over the launch plus
+    item 2 (drifts out of the band: escapes), item 6 (all PAD) and the
+    last block's, every word of their planes and the walk's payload after
+    them."""
+    q4, t4, _, m, n = _packed(3 * cap + w, B, cap, w)
+    geo = dict(m_cap=cap, n_cap=cap, w_band=w)
+    g = to_device(q4, t4, None, m, n, m_cap=cap, n_cap=cap, device=gpu)
+    idx = (np.arange(B) if sample is None else np.unique(np.r_[
+        np.linspace(0, B - 1, sample).astype(int), 2, 6, B - 1]))
+    c = to_device(q4[idx], t4[idx], None, m[idx], n[idx], m_cap=cap,
+                  n_cap=cap, device="cpu")
+    before = LAUNCHES["myers_sweep"]
+    planes = mk.myers_sweep(g.q4, g.t4, **geo)
+    payload = mk.myers_walk(planes, g.m, g.n, **geo)
+    torch.cuda.synchronize()
+    assert LAUNCHES["myers_sweep"] == before + 1
+    pl = mk.myers_sweep_plain(c.q4, c.t4, **geo)
+    sel = torch.from_numpy(idx).to(gpu)
+    assert torch.equal(planes[sel].cpu(), pl)
+    pp = mk.myers_walk_plain(pl, c.m, c.n, **geo)
+    assert torch.equal(payload[sel].cpu(), pp)
+    assert pp[:, -1].any() and not pp[:, -1].all()
+
+
+@pytest.mark.parametrize("cap,w,B", [(640, 128, 4096), (640, 128, 4097),
+                                     (256, 128, 4097), (1280, 256, 1024),
+                                     (5120, 1024, 40), (40960, 1024, 17)])
+def test_rle_walk_staged_matches_plain(gpu, cap, w, B):
+    """The RLE walk's staged, coalesced payload on every item: a warp of
+    32 items a block (B = 4097 leaves one in the last), shared staging
+    past 48 KB at (5120,1024) (E = 1792) and 16 items a block at
+    (40960,1024) (E = 10752; B = 17 leaves one)."""
+    q4, t4, dcb, m, n = _packed(cap + 5 * w + B, B, cap, w)
+    geo = dict(m_cap=cap, n_cap=cap, w_band=w)
+    g = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap, device=gpu)
+    c = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap, device="cpu")
+    moves, _ = nk.nw_sweep(g.q4, g.t4, g.dcb, **geo, match=5, mismatch=-4,
+                           gap=-8)
+    before = LAUNCHES["rle_walk"]
+    payload = nk.rle_walk(moves, g.m, g.n, **geo)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rle_walk"] == before + 1
+    want = nk.rle_walk_plain(moves.cpu(), c.m, c.n, **geo)
+    assert torch.equal(payload.cpu(), want)
+    assert want[:, -1].any()
 
 
 def test_myers_walk_long_deletion_runs(gpu):
