@@ -30,11 +30,12 @@ Phases (each must pass, or the script exits non-zero):
      versions, timed in turns with them (and K1-16's other warp layout);
   3. the consensus stage on the bench workload (testing.synth
      build_workload, 2048 windows of 500 bp, 12% error, match 5 /
-     mismatch -4 / gap -8), four times: the default RLE walk, then
+     mismatch -4 / gap -8), six times: the default RLE walk, then
      RACON_TPU_WALK=rows twice, then the default again, then once more
-     under RACON_TPU_DP16=1; edit distance to the truth must be exactly 91
-     each time, the rows runs must launch the rows walk and not the RLE
-     walk, and the int16 run the int16 sweep;
+     under RACON_TPU_DP16=1, then once with RACON_TPU_COHORTS=1; edit
+     distance to the truth must be exactly 91 each time, the rows runs
+     must launch the rows walk and not the RLE walk, the int16 run the
+     int16 sweep, and every run but the last must run 3 cohorts;
   4. the default polish path end to end (the CLI's arguments `--backend
      cuda -m 5 -x -4 -g -8 -t <cores>`, then create_polisher ->
      initialize -> polish) on testing.synth.make_dataset (4.6 Mb, 20x 8 kb
@@ -43,9 +44,19 @@ Phases (each must pass, or the script exits non-zero):
      must be >= 99.99%, and the warp sweep, RLE walk and both Myers
      kernels must have launched; then the same under RACON_TPU_DP16=1,
      whose FASTA must be byte-equal and which must launch the int16
-     sweep; then initialize
-     and polish once more, each under torch.profiler, with and without
-     RACON_TPU_DP16=1: device busy and time per kernel;
+     sweep; then four more polishes, with RACON_TPU_COHORTS=1 and the
+     default in turns (1, default, default, 1): each one's wall times
+     and the consensus stage's split (dispatch, fetch wait, decode,
+     poa_round, host_fallback), 3 cohorts by default, the FASTA
+     byte-equal to the first; then initialize and polish once more, each
+     under torch.profiler, by default, with RACON_TPU_DP16=1 and with
+     RACON_TPU_COHORTS=1: device busy, the share of it inside the host's
+     decode / merge / realign spans and inside its dispatch spans, time
+     per kernel, and no H2D copy
+     from pageable memory; then `raconx-torch --profile <dir>` in a
+     process of its own on a 50 kb dataset: the trace must name the warp
+     sweep and the Myers sweep, and the FASTA must be the run's without
+     the flag;
   5. the wide-band slice end to end: the same path with `-w 10000` on
      make_dataset(1 Mb, 20x 20 kb reads, 12% error split (0.2, 0.5, 0.3)
      between insertions, deletions and substitutions, seed 11): the wide
@@ -333,21 +344,23 @@ def _sweep16_bound(B, cap, W):
 
 
 @contextlib.contextmanager
-def dp16(on):
-    """RACON_TPU_DP16 set to 1 (on) or unset (off) for the block, as it
-    was after."""
-    old = os.environ.get("RACON_TPU_DP16")
-    if on:
-        os.environ["RACON_TPU_DP16"] = "1"
-    else:
-        os.environ.pop("RACON_TPU_DP16", None)
+def setenv(key, value):
+    """os.environ[key] = value for the block (None: unset), as it was
+    after."""
+    old = os.environ.pop(key, None)
+    if value is not None:
+        os.environ[key] = value
     try:
         yield
     finally:
-        if old is None:
-            os.environ.pop("RACON_TPU_DP16", None)
-        else:
-            os.environ["RACON_TPU_DP16"] = old
+        os.environ.pop(key, None)
+        if old is not None:
+            os.environ[key] = old
+
+
+def dp16(on):
+    """RACON_TPU_DP16 set to 1 (on) or unset (off) for the block."""
+    return setenv("RACON_TPU_DP16", "1" if on else None)
 
 
 def _walk_bound(B, cap, W, width, steps):
@@ -721,7 +734,9 @@ def phase_kernels16(results):
 
 def phase_bench(threads, results):
     """Phase 3: consensus stage on the bench workload, with the RLE walk
-    (the default) and the rows walk (RACON_TPU_WALK=rows) in turns."""
+    (the default) and the rows walk (RACON_TPU_WALK=rows) in turns, at the
+    default cohort count (3), then once in int16 and once in one cohort
+    (RACON_TPU_COHORTS=1)."""
     from racon_tpu_torch.kernels import LAUNCHES, reset_launches
     from racon_tpu_torch.models.polish_model import PolisherConfig
     from racon_tpu_torch.native import bindings
@@ -734,9 +749,10 @@ def phase_bench(threads, results):
                          mismatch=-4, gap=-8)
     escapes = {}
     try:
-        for run, (walk, int16) in enumerate((
-                ("rle", False), ("rows", False), ("rows", False),
-                ("rle", False), ("rle", True))):
+        for run, (walk, int16, cohorts) in enumerate((
+                ("rle", False, None), ("rows", False, None),
+                ("rows", False, None), ("rle", False, None),
+                ("rle", True, None), ("rle", False, "1"))):
             if walk == "rows":
                 os.environ["RACON_TPU_WALK"] = "rows"
             else:
@@ -744,7 +760,8 @@ def phase_bench(threads, results):
             stage = TorchConsensusStage(cfg, "cuda")
             reset_launches()
             t0 = time.perf_counter()
-            with contextlib.redirect_stderr(io.StringIO()), dp16(int16):
+            with contextlib.redirect_stderr(io.StringIO()), dp16(int16), \
+                    setenv("RACON_TPU_COHORTS", cohorts):
                 cons, _ = stage.consensus_windows(windows, cfg, Logger())
             dt = time.perf_counter() - t0
             counts = dict(LAUNCHES)
@@ -756,8 +773,8 @@ def phase_bench(threads, results):
                 record_launches(results, f"bench_{label}", counts)
             first = (" (the process's first run: includes first-launch "
                      "costs)" if run == 0 else "")
-            log(f"[bench] walk {walk}{', RACON_TPU_DP16=1' * int16}: "
-                f"{windows.num_windows} windows in "
+            log(f"[bench] walk {walk}{', RACON_TPU_DP16=1' * int16}, "
+                f"{stage.n_cohorts} cohorts: {windows.num_windows} windows in "
                 f"{dt:.3f} s = {windows.num_windows / dt:.2f} windows/s"
                 f"{first}; launches {counts}; stage {prof}; edit distance "
                 f"to truth {d}")
@@ -774,6 +791,9 @@ def phase_bench(threads, results):
                 raise SmokeFailure(f"{label} walk run launched {counts}")
             if run == 1:
                 results["rows_walk"]["launches"] = counts["rows_walk"]
+            if stage.n_cohorts != (3 if cohorts is None else 1):
+                raise SmokeFailure(f"bench run {run}: {stage.n_cohorts} "
+                                   "cohorts")
     finally:
         os.environ.pop("RACON_TPU_WALK", None)
     log(f"[bench] band escapes per walk: {escapes}")
@@ -835,10 +855,44 @@ def _identity(tag, what, seq, true):
     return ident
 
 
+# the stages' host phases (torch.profiler.record_function names in
+# ops/consensus_stage.py) whose overlap with the device's busy time the
+# profile reports: decode, merge and realign, the work cohorts overlap
+# with the device, then the dispatch (packing, uploads, launches)
+HOST_SPANS = (("racon::decode", "racon::poa_round", "racon::host_fallback"),
+              ("racon::dispatch",))
+
+
+def _union(spans):
+    """Sorted disjoint intervals covering `spans`."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _overlap(xs, ys):
+    """Total length of the intersection of two sorted disjoint unions."""
+    total, j = 0.0, 0
+    for a, b in xs:
+        while j < len(ys) and ys[j][1] <= a:
+            j += 1
+        k = j
+        while k < len(ys) and ys[k][0] < b:
+            total += min(b, ys[k][1]) - max(a, ys[k][0])
+            k += 1
+    return total
+
+
 def _device_profile(fn):
-    """fn() under torch.profiler (CPU and CUDA activity): (wall s, device
-    busy s as the union of the device's kernel and copy intervals,
-    {kernel or copy name: [ms, count]} in descending ms)."""
+    """fn() under torch.profiler (CPU and CUDA activity): wall s, device
+    busy s (the union of the device's kernel and copy intervals), the
+    part of it inside each group of HOST_SPANS (s), the H2D and D2H
+    copies from and to pageable memory, and {kernel or copy name: [ms,
+    count]} in descending ms."""
     import re
 
     import torch
@@ -851,29 +905,39 @@ def _device_profile(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans, by_name = [], {}
+    spans, host, by_name = [], [[] for _ in HOST_SPANS], {}
+    pageable = {"HtoD": 0, "DtoH": 0}
     for e in prof.events():
+        rng = (e.time_range.start, e.time_range.end)
+        if e.name.startswith("racon::"):  # an annotation, not device work
+            for group, names in zip(host, HOST_SPANS):
+                if e.device_type == DeviceType.CPU and e.name in names:
+                    group.append(rng)
+            continue
         if e.device_type != DeviceType.CUDA:
             continue
-        spans.append((e.time_range.start, e.time_range.end))
+        spans.append(rng)
+        if "Pageable" in e.name:
+            pageable["HtoD" if "HtoD" in e.name else "DtoH"] += 1
         k = re.search(r"(\w+_kernel)(<[^>]*>)?", e.name)
         name = k.group(0) if k else e.name[:40]
         ms_n = by_name.setdefault(name, [0.0, 0])
         ms_n[0] += (e.time_range.end - e.time_range.start) / 1e3
         ms_n[1] += 1
-    busy, end = 0.0, float("-inf")
-    for a, b in sorted(spans):
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    return wall, busy / 1e6, dict(sorted(by_name.items(),
-                                         key=lambda kv: -kv[1][0]))
+    busy = _union(spans)
+    hidden = [_overlap(busy, _union(group)) / 1e6 for group in host]
+    return dict(wall=wall, busy=sum(b - a for a, b in busy) / 1e6,
+                hidden=hidden[0], in_dispatch=hidden[1], pageable=pageable,
+                by_name=dict(sorted(by_name.items(), key=lambda kv:
+                                    -kv[1][0])))
 
 
-def _profile_polish(wd, argv):
+def _profile_polish(wd, argv, mode):
     """create_polisher -> initialize -> polish once more in this process,
     each of the two calls under torch.profiler: where the device time of
-    the main path goes. Returns polish()'s {kernel: [ms, launches]}."""
+    the main path goes, and how much of it the host's decode and merge
+    hide. Fails on any H2D copy from pageable memory. Returns polish()'s
+    profile (_device_profile)."""
     from racon_tpu_torch import cli
     from racon_tpu_torch.polisher import create_polisher
 
@@ -885,14 +949,25 @@ def _profile_polish(wd, argv):
         p = create_polisher(*args.inputs, cfg)
         for call, fn in (("initialize", p.initialize),
                          ("polish", lambda: p.polish(True))):
-            wall, busy, by_name = _device_profile(fn)
+            pr = _device_profile(fn)
             top = ", ".join(f"{k} {v[0]:.1f} ms / {v[1]}"
-                            for k, v in list(by_name.items())[:6])
-            mode = ", RACON_TPU_DP16=1" * (os.environ.get(
-                "RACON_TPU_DP16") == "1")
-            log(f"[profile] {call}(){mode} {wall:.3f} s (profiled), device "
-                f"busy {busy:.3f} s ({100 * busy / wall:.1f} %): {top}")
-    return by_name
+                            for k, v in list(pr["by_name"].items())[:6])
+            busy = pr["busy"]
+            share = {k: f"{pr[k]:.3f} s ({100 * pr[k] / max(busy, 1e-9):.1f}"
+                        " %)" for k in ("hidden", "in_dispatch")}
+            log(f"[profile] {call}() {mode}: {pr['wall']:.3f} s (profiled), "
+                f"device busy {busy:.3f} s "
+                f"({100 * busy / pr['wall']:.1f} %), of it inside host "
+                f"decode/merge/realign {share['hidden']}, inside dispatch "
+                f"{share['in_dispatch']}; copies from/to pageable memory "
+                f"{pr['pageable']}: {top}")
+            if pr["pageable"]["HtoD"]:
+                raise SmokeFailure(f"{call}() {mode}: "
+                                   f"{pr['pageable']['HtoD']} H2D copies "
+                                   "from pageable memory")
+    log(f"[profile] polish() {mode}: the consensus stage ran "
+        f"{p.consensus_stage.n_cohorts} cohorts")
+    return pr
 
 
 POLISH_ARGV = ["--backend", "cuda", "-m", "5", "-x", "-4", "-g", "-8"]
@@ -937,15 +1012,81 @@ def phase_polish(wd, genome_mb, threads, results):
         f"run's (identity {ident:.4f}%); nw_sweep16 {counts16['nw_sweep16']}"
         f" launches, nw_sweep {counts16['nw_sweep']} (tiers above the int16 "
         f"gate)")
+    _overlap_turns(wd, threads, out)
     sweeps = {}
-    for tag, on in (("int32", False), ("dp16", True)):
-        with dp16(on):
-            by_name = _profile_polish(wd, [*POLISH_ARGV, "-t", str(threads)])
+    argv = [*POLISH_ARGV, "-t", str(threads)]
+    for tag, on, cohorts in (("int32", False, None), ("dp16", True, None),
+                             ("cohorts1", False, "1")):
+        with dp16(on), setenv("RACON_TPU_COHORTS", cohorts):
+            by_name = _profile_polish(wd, argv, tag)["by_name"]
         sweeps[tag] = {k: v for k, v in by_name.items()
                        if k.startswith("nw_sweep")}
     log(f"[profile] polish() sweep kernels, int32 run: {sweeps['int32']}; "
         f"RACON_TPU_DP16=1 run: {sweeps['dp16']} ([ms, launches])")
-    results["nw_sweep16"]["polish_profile"] = sweeps
+    results["nw_sweep16"]["polish_profile"] = {
+        k: sweeps[k] for k in ("int32", "dp16")}
+    _profile_cli()
+
+
+def _overlap_turns(wd, threads, out):
+    """Phase 4's polish with RACON_TPU_COHORTS=1 and with the default
+    cohort count in turns (1, default, default, 1): each run's times and
+    the consensus stage's split; the default must run 3 cohorts, and
+    every FASTA must equal the first polish's."""
+    for cohorts in ("1", None, None, "1"):
+        tag = f"cohorts {cohorts or 'default'}"
+        with setenv("RACON_TPU_COHORTS", cohorts):
+            p, got, _ = _polish_cli(tag, wd, [*POLISH_ARGV, "-t",
+                                              str(threads)])
+        c = p.consensus_stage
+        split = {k: round(c.prof[k + "_s"], 3) for k in (
+            "dispatch", "fetch", "decode", "poa_round", "host_fallback")}
+        log(f"[{tag}] the consensus stage ran {c.n_cohorts} cohorts; its "
+            f"split (s) {split}; FASTA sha256 "
+            f"{hashlib.sha256(got[0][1]).hexdigest()}")
+        if c.n_cohorts != (3 if cohorts is None else 1):
+            raise SmokeFailure(f"{tag}: {c.n_cohorts} cohorts")
+        if got != out:
+            raise SmokeFailure(f"{tag}: the FASTA differs from phase 4's")
+
+
+def _profile_cli():
+    """raconx-torch --profile <dir> in a process of its own on a 50 kb
+    make_dataset: the trace must name the warp sweep (K1) and the Myers
+    sweep (K3), and the FASTA must be the run's without --profile."""
+    from racon_tpu_torch.testing.synth import make_dataset
+
+    with tempfile.TemporaryDirectory() as wd:
+        make_dataset(wd, 50_000, 8000, 20, 0.12, seed=11)
+        inputs = [os.path.join(wd, f) for f in
+                  ("reads.fasta", "ovl.paf", "draft.fasta")]
+        fastas = []
+        for extra in ([], ["--profile", os.path.join(wd, "trace")]):
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-m", "racon_tpu_torch.cli", *extra,
+                 *POLISH_ARGV, "-t", "8", *inputs], cwd=ROOT,
+                capture_output=True, timeout=300)
+            if res.returncode:
+                raise SmokeFailure(f"raconx-torch {' '.join(extra)} exited "
+                                   f"{res.returncode}: "
+                                   f"{res.stderr.decode()[-2000:]}")
+            fastas.append(res.stdout)
+            log(f"[profile-cli] raconx-torch {' '.join(extra) or '(plain)'}"
+                f" on 50 kb: {time.perf_counter() - t0:.1f} s, FASTA "
+                f"{len(res.stdout)} bytes")
+        traces = [os.path.join(wd, "trace", f)
+                  for f in os.listdir(os.path.join(wd, "trace"))]
+        text = "".join(open(f).read() for f in traces)
+        want = ("nw_sweep_warp_kernel", "myers_sweep_kernel")
+        log(f"[profile-cli] trace {[os.path.basename(f) for f in traces]}, "
+            f"{len(text)} bytes; names "
+            f"{ {k: text.count(k) for k in want} }")
+        if fastas[0] != fastas[1] or not fastas[0].startswith(b">"):
+            raise SmokeFailure("--profile changed the FASTA")
+        missing = [k for k in want if k not in text]
+        if missing:
+            raise SmokeFailure(f"the --profile trace lacks {missing}")
 
 
 def short_reads(wd):

@@ -4,8 +4,9 @@ reference: src/main.cpp).
 Same positional arguments, options, defaults, FASTA-on-stdout contract and
 error messages as racon_tpu/cli.py, with the backends auto (= cuda),
 cuda, native and python. racon's CUDA flags (-c/-b/--cudaaligner-*)
-select the cuda backend. Not available here: --profile and --distributed
-(multi-GPU is a later slice). The arguments and the input files are
+select the cuda backend. --profile <dir> writes a torch.profiler trace of
+create_polisher -> initialize -> polish into <dir>. Not available here:
+--distributed (multi-GPU is a later slice). The arguments and the input files are
 checked before the backend is resolved, so racon's own error messages
 come first; without a GPU, auto and cuda then exit 1 with a message.
 """
@@ -80,6 +81,10 @@ HELP = """usage: racon [options ...] <sequences> <overlaps> <target sequences>
         --candidate-frac <float> / --candidate-min <int>
             default: 0.15 / 2
             support thresholds for insertion candidates between passes
+        --profile <dir>
+            write a torch.profiler trace (host and, on a GPU, device
+            activity) of the run into <dir>, as Chrome-trace JSON that
+            TensorBoard and Perfetto read
         --version
             prints the version number
         -h, --help
@@ -120,6 +125,7 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--refine-passes", type=int, default=4)
     p.add_argument("--candidate-frac", type=float, default=0.15)
     p.add_argument("--candidate-min", type=int, default=2)
+    p.add_argument("--profile", type=str, default=None)
     # racon's CUDA options (src/main.cpp:37-40) select the cuda backend;
     # batch sizing is automatic, so the counts only act as a switch
     p.add_argument("-c", "--cudapoa-batches", type=int, nargs="?", const=1,
@@ -161,6 +167,35 @@ def make_config(args: argparse.Namespace) -> PolisherConfig:
     )
 
 
+def _start_profiler(trace_dir: str):
+    """A started torch.profiler session that writes its trace into
+    trace_dir when stopped (racon_tpu/cli.py's jax.profiler trace); None,
+    with a warning, where the profiler cannot start."""
+    try:
+        import torch
+        from torch.profiler import (ProfilerActivity, profile,
+                                    tensorboard_trace_handler)
+
+        activities = [ProfilerActivity.CPU]
+        if torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities,
+                       on_trace_ready=tensorboard_trace_handler(trace_dir))
+        prof.start()
+        return prof
+    except (ImportError, RuntimeError, OSError) as e:
+        sys.stderr.write(f"[racon::] warning: profiler unavailable: {e}\n")
+        return None
+
+
+def _stop_profiler(prof) -> None:
+    try:
+        prof.stop()  # writes <dir>/<host>_<pid>.<ms>.pt.trace.json
+    except (RuntimeError, OSError) as e:
+        sys.stderr.write(f"[racon::] warning: profiler trace not written: "
+                         f"{e}\n")
+
+
 def main(argv: list[str] | None = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     try:
@@ -177,6 +212,7 @@ def main(argv: list[str] | None = None) -> int:
         sys.stderr.write("[racon::] error: missing input file(s)!\n")
         print(HELP, end="")
         return 1
+    profiler = _start_profiler(args.profile) if args.profile else None
     try:
         polisher = create_polisher(args.inputs[0], args.inputs[1],
                                    args.inputs[2], make_config(args))
@@ -188,6 +224,9 @@ def main(argv: list[str] | None = None) -> int:
     except BackendUnavailable as e:
         sys.stderr.write(f"[racon::] error: {e}\n")
         return 1
+    finally:
+        if profiler is not None:
+            _stop_profiler(profiler)
     out = sys.stdout.buffer
     for name, data in polished:
         out.write(b">" + name + b"\n" + data + b"\n")

@@ -30,6 +30,7 @@ import torch
 
 from ..native import bindings
 
+from . import prefetch
 from .consensus_stage import chunk_size, chunk_spans
 from .geometry import PAD_CODE, encode, myers_fits
 from .myers_kernel import align_walk_myers_padded
@@ -41,7 +42,8 @@ _TIERS = ((2560, 512), (10240, 1024), (40960, 1024), (10240, 4096),
           (40960, 4096))
 
 # chunks launched ahead of the one being decoded, so the device computes
-# while the host decodes (the reference bounded this by 4 GB of HBM)
+# while the host decodes (the reference bounded this by 4 GB of HBM); each
+# payload's fetch starts right behind its chunk's launches (ops/prefetch)
 _MAX_QUEUED = 4
 
 # device bytes of one Myers chunk's DIAG/UP planes (freed once the walk has
@@ -126,8 +128,8 @@ class TorchAlignStage:
         done = [0]
 
         def drain_one():
-            sel, cap, band, fmt, payload = pending.popleft()
-            payload = payload.cpu().numpy()
+            sel, cap, band, fmt, payload, fetch = pending.popleft()
+            payload = prefetch.resolve(payload, fetch)
             escaped = payload[:, -1] != 0
             decode, codes, budget = payload_decoder(fmt, payload, cap, band)
             ops_flat, ops_off, counts = decode(codes, budget, mlen[sel],
@@ -178,7 +180,8 @@ class TorchAlignStage:
                         w_band=band, match=0, mismatch=-1, gap=-1,
                         device=self.device)
                     route = "scored/" + fmt
-                pending.append((sel, cap, band, fmt, payload))
+                pending.append((sel, cap, band, fmt, payload,
+                                prefetch.submit(payload)))
                 self.stats["device_items"] += len(sel)
                 self.stats["tier_items"][(cap, band, route)] += len(sel)
         while pending:

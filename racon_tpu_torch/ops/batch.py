@@ -13,7 +13,10 @@ racon_tpu/ops/nw_kernel.py pack_codes4 and pack_delbits):
   m, n (B,)           int32  real query / target lengths
 
 `to_device` checks that layout once and moves it; the stages and the tests
-both go through it.
+both go through it. On a CUDA device each array goes up from page-locked
+memory without blocking the host: a pageable copy would hold the host
+until the stream drained, so packing the next chunk (or another cohort's
+round) could never overlap the kernels already queued.
 """
 
 from __future__ import annotations
@@ -57,7 +60,12 @@ def check_packed(q4, t4, dcb, m, n, *, m_cap: int, n_cap: int) -> None:
 
 def _move(arr, dtype, device) -> torch.Tensor:
     t = torch.from_numpy(np.ascontiguousarray(arr, dtype=dtype))
-    return t.to(device, non_blocking=False)
+    if device.type != "cuda":
+        return t.to(device)
+    # pin_memory() copies into a block of PyTorch's caching host allocator,
+    # so the caller's numpy array is free once it returns; the allocator
+    # records an event on the async copy and reuses the block only after it
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def to_device(q4, t4, dcb, m, n, *, m_cap: int, n_cap: int,

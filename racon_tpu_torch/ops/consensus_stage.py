@@ -16,12 +16,21 @@ in the reference; a tier wider than the sweep kernel takes would be too
 Left out of the port, each for a reason recorded in ROADMAP.md: the
 cheapest-path router `_route` and its tunnel calibrations (the stage always
 runs on the device), the padded-batch ladder (a kernel launch takes any
-batch size, so chunks launch at their exact size), the device-resident
-gather form and the prewarm family, and cohort pipelining (one cohort).
+batch size, so chunks launch at their exact size), and the device-resident
+gather form and the prewarm family.
+
+The host/device overlap is the reference's: the windows run in cohorts
+(_auto_cohorts) whose rounds interleave, every chunk's payload fetch is
+started right behind its launches (ops/prefetch.py) and waited for only
+when the cohort's round completes, and the packed uploads go up from
+page-locked memory without blocking the host (ops/batch.py). The host
+phases are named in a torch.profiler trace ("racon::dispatch", "fetch",
+"decode", "host_fallback", "poa_round") and timed into `prof`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import time
 from collections import defaultdict
@@ -32,6 +41,7 @@ import torch
 from ..native import bindings
 from ..utils.phred import PHRED_OFFSET
 
+from . import prefetch
 from .geometry import PAD_CODE, encode, sweep_fits
 from .nw_kernel import align_walk_padded, payload_decoder
 
@@ -120,6 +130,8 @@ class TorchConsensusStage:
         self.prof = defaultdict(float)
         # per refinement pass: items per (cap, band) tier, -1 = host
         self.tier_items: list[dict] = []
+        self.n_cohorts = 0  # cohorts of the last consensus_windows()
+        self._ops_scratch = np.empty(0, np.int32)  # decode buffer
 
     def consensus_windows(self, windows, cfg, logger):
         from ..core.windows import WINDOW_TYPE_TGS
@@ -159,40 +171,93 @@ class TorchConsensusStage:
         max_expand = cap
 
         passes = max(1, cfg.refine_passes)
-        total_units = len(active) * passes
+
+        # cohort pipelining: the windows split into cohorts whose rounds
+        # interleave, so one cohort's host decode and merge run while the
+        # other cohorts' chunks are on the device
+        self.n_cohorts = self._auto_cohorts(len(active), passes)
+        cohorts = []
+        bounds = np.linspace(0, len(active), self.n_cohorts + 1).astype(int)
+        for lo, hi in zip(bounds[:-1], bounds[1:]):
+            part = active[lo:hi]  # never empty: n_cohorts <= len(active)
+            if self.n_cohorts == 1:
+                cohorts.append(_Cohort(part, st, state))
+            else:
+                cohorts.append(_Cohort(part, st.subset(np.arange(lo, hi)),
+                                       _RoundState(windows, part, cfg.gap)))
+
+        def dispatch(co):
+            with self._span("dispatch"):
+                co.pending = self._round_dispatch(cfg, co, max_expand,
+                                                  windows)
+
+        total_units = len(active) * passes  # window-rounds, for progress
         done_units = 0
-        for pass_no in range(passes):
-            final = pass_no == passes - 1
-            t0 = time.perf_counter()
-            ctx = self._round_dispatch(cfg, st, state, max_expand, windows)
-            self.prof["dispatch_s"] += time.perf_counter() - t0
-            retired = self._round_complete(ctx, cfg, final, tgs, active,
-                                           consensus, polished)
-            done_units += len(active) + len(retired) * (passes - pass_no - 1)
-            logger.bar_progress(
-                "[racon::Polisher::polish] generating consensus",
-                done_units, total_units)
-            if final:
-                break
-            if retired:
-                # converged windows were finalized in-round; later rounds
-                # would reproduce their state bit for bit
-                keep_z = np.array([z for z, w in enumerate(active)
-                                   if w not in retired], np.int64)
-                active = [active[z] for z in keep_z]
-                if not active:
-                    break
-                st = st.subset(keep_z)
-                state.subset(keep_z)
+        for co in cohorts:
+            dispatch(co)
+        while any(co.pending is not None for co in cohorts):
+            for co in cohorts:
+                if co.pending is None:
+                    continue
+                final = co.pass_no == passes - 1
+                retired = self._round_complete(co.pending, cfg, final, tgs,
+                                               consensus, polished)
+                co.pending = None
+                co.pass_no += 1
+                done_units += len(co.active)
+                if retired:  # converged: their remaining rounds are done too
+                    done_units += len(retired) * (passes - co.pass_no)
+                logger.bar_progress(
+                    "[racon::Polisher::polish] generating consensus",
+                    done_units, total_units)
+                if co.pass_no >= passes:
+                    continue
+                if retired:
+                    # converged windows were finalized in-round; later
+                    # rounds would reproduce their state bit for bit
+                    keep_z = np.array([z for z, w in enumerate(co.active)
+                                       if w not in retired], np.int64)
+                    co.active = [co.active[z] for z in keep_z]
+                    if co.active:
+                        co.st = co.st.subset(keep_z)
+                        co.state.subset(keep_z)
+                if co.active:
+                    dispatch(co)
         logger.bar_progress("[racon::Polisher::polish] generating consensus",
                             total_units, total_units)
         return [c if c is not None else b"" for c in consensus], polished
 
+    def _auto_cohorts(self, n_active: int, passes: int) -> int:
+        """Cohort count (the reference's _auto_cohorts without its link
+        terms): 3 on a CUDA device when there are >= 256 windows and >= 2
+        passes, else 1; RACON_TPU_COHORTS forces; at most one cohort a
+        window."""
+        n_coh = 1
+        if self.device.type == "cuda" and n_active >= 256 and passes >= 2:
+            n_coh = 3
+        env_coh = os.environ.get("RACON_TPU_COHORTS")
+        if env_coh:
+            n_coh = int(env_coh)
+        return max(1, min(n_coh, max(1, n_active)))
+
+    @contextlib.contextmanager
+    def _span(self, key: str):
+        """Time a host phase into prof[key + "_s"] and name it in a
+        torch.profiler trace ("racon::" + key)."""
+        t0 = time.perf_counter()
+        with torch.profiler.record_function("racon::" + key):
+            yield
+        self.prof[key + "_s"] += time.perf_counter() - t0
+
     # ------------------------------------------------------------------ #
 
-    def _round_dispatch(self, cfg, st, state, max_expand, windows):
-        """Per-round state prep, tier bucketing and the device launches
-        (all chunks are launched before any payload is fetched)."""
+    def _round_dispatch(self, cfg, co, max_expand, windows):
+        """First half of a cohort's round: per-round state prep, tier
+        bucketing and the device launches, each chunk's payload fetch
+        started right behind its launches. Returns the context
+        _round_complete consumes; in between, the device works while the
+        host serves another cohort."""
+        active, st, state = co.active, co.st, co.state
         thr = cfg.num_threads
         cur_enc = encode(state.cur).astype(np.int8)
         del8 = (state.dcost != 0).view(np.int8)  # bitmask: cost gap or free
@@ -207,8 +272,10 @@ class TorchConsensusStage:
         tiers = [t for t in _TIERS if t[0] <= max_expand] or [_TIERS[0]]
         tier_id = bucket_tiers(mlen, nlen, tiers)
         ids, counts = np.unique(tier_id, return_counts=True)
-        self.tier_items.append({(tiers[t] if t >= 0 else -1): int(c)
-                                for t, c in zip(ids, counts)})
+        if len(self.tier_items) <= co.pass_no:
+            self.tier_items.append(defaultdict(int))
+        for t, c in zip(ids, counts):
+            self.tier_items[co.pass_no][tiers[t] if t >= 0 else -1] += int(c)
         host_parts = [np.flatnonzero(tier_id < 0)]
         pending = []
         for ti, (cap, w_band) in enumerate(tiers):
@@ -235,20 +302,21 @@ class TorchConsensusStage:
                     nlen[sel].astype(np.int32), m_cap=cap, n_cap=cap,
                     w_band=w_band, match=cfg.match, mismatch=cfg.mismatch,
                     gap=cfg.gap, device=self.device)
-                pending.append((sel, cap, w_band, fmt, payload))
+                pending.append((sel, cap, w_band, fmt, payload,
+                                prefetch.submit(payload)))
                 self.prof["device_items"] += len(sel)
-        return dict(st=st, state=state, max_expand=max_expand, sb=sb,
-                    t_start=t_start, mlen=mlen, nlen=nlen,
+        return dict(active=active, st=st, state=state, max_expand=max_expand,
+                    sb=sb, t_start=t_start, mlen=mlen, nlen=nlen,
                     host_parts=host_parts, pending=pending)
 
-    def _round_complete(self, ctx, cfg, final, tgs, active, consensus,
-                        polished):
-        """Fetch and decode the payloads, realign escapes on the host,
-        merge the round natively and replace the state. Returns the
-        retired (converged) window ids."""
+    def _round_complete(self, ctx, cfg, final, tgs, consensus, polished):
+        """Second half of a cohort's round: wait for and decode the
+        payloads, realign escapes on the host, merge the round natively
+        and replace the cohort's state. Returns the retired (converged)
+        window ids."""
         gap = cfg.gap
         thr = cfg.num_threads
-        st, state = ctx["st"], ctx["state"]
+        active, st, state = ctx["active"], ctx["st"], ctx["state"]
         mlen, nlen = ctx["mlen"], ctx["nlen"]
         t_start = ctx["t_start"]
         host_parts = ctx["host_parts"]
@@ -256,59 +324,62 @@ class TorchConsensusStage:
         lens = np.diff(state.off)
 
         # decode straight into the merge's padded per-item layout
-        # (capacity m + n + 2 runs per item)
+        # (capacity m + n + 2 runs per item). The buffer is grow-only and
+        # reused across rounds and cohorts (calls never overlap): a fresh
+        # one per round re-pays the page faults of every page it touches.
         ops_off2 = np.zeros(n_items + 1, np.int64)
         np.cumsum(mlen + nlen + 2, out=ops_off2[1:])
-        ops_blob = np.empty((int(ops_off2[-1]), 2), np.int32)
+        need = int(ops_off2[-1]) * 2
+        if self._ops_scratch.size < need:
+            self._ops_scratch = np.empty(need + need // 4, np.int32)
+        ops_blob = self._ops_scratch[:need].reshape(-1, 2)
         cnt = np.zeros(n_items, np.int64)
-        for sel, cap, w_band, fmt, payload in ctx["pending"]:
-            t0 = time.perf_counter()
-            payload = payload.cpu().numpy()
-            t1 = time.perf_counter()
-            self.prof["fetch_s"] += t1 - t0
-            escaped = payload[:, -1] != 0
-            decode, codes, budget = payload_decoder(fmt, payload, cap,
-                                                    w_band)
-            _, _, counts = decode(codes, budget, mlen[sel], nlen[sel], thr,
-                                  dst=ops_blob, dst_off=ops_off2[:-1][sel])
-            host_parts.append(sel[escaped])  # band escape -> host realign
-            cnt[sel[~escaped]] = counts[~escaped]
-            self.prof["escaped_items"] += int(escaped.sum())
-            self.prof["decode_s"] += time.perf_counter() - t1
+        for sel, cap, w_band, fmt, payload, fetch in ctx["pending"]:
+            with self._span("fetch"):  # the wait: the copy ran on its own
+                payload = prefetch.resolve(payload, fetch)
+            with self._span("decode"):
+                escaped = payload[:, -1] != 0
+                decode, codes, budget = payload_decoder(fmt, payload, cap,
+                                                        w_band)
+                _, _, counts = decode(codes, budget, mlen[sel], nlen[sel],
+                                      thr, dst=ops_blob,
+                                      dst_off=ops_off2[:-1][sel])
+                host_parts.append(sel[escaped])  # band escape -> host
+                cnt[sel[~escaped]] = counts[~escaped]
+                self.prof["escaped_items"] += int(escaped.sum())
 
         # host alignment with per-column deletion costs
-        t0 = time.perf_counter()
-        host_idx = np.concatenate(host_parts)
-        self.prof["host_items"] += len(host_idx)
-        if len(host_idx):
-            hm = mlen[host_idx]
-            hn = nlen[host_idx]
-            qoff = np.zeros(len(host_idx) + 1, np.int64)
-            np.cumsum(hm, out=qoff[1:])
-            toff = np.zeros(len(host_idx) + 1, np.int64)
-            np.cumsum(hn, out=toff[1:])
-            qblob = bindings.gather_ranges(st.lay_blob, st.lay_off[host_idx],
-                                           hm, thr)
-            tsel = _flat_ranges(t_start[host_idx], hn)
-            ops_flat, ops_off, counts = bindings.align_batch_percol(
-                qblob, qoff, state.cur[tsel], toff, state.dcost[tsel],
-                cfg.match, cfg.mismatch, gap, thr)
-            cnt[host_idx] = counts
-            bindings.gather_ranges(ops_flat, ops_off[:-1], counts, thr,
-                                   dst=ops_blob,
-                                   dst_off=ops_off2[:-1][host_idx])
-        self.prof["host_fallback_s"] += time.perf_counter() - t0
+        with self._span("host_fallback"):
+            host_idx = np.concatenate(host_parts)
+            self.prof["host_items"] += len(host_idx)
+            if len(host_idx):
+                hm = mlen[host_idx]
+                hn = nlen[host_idx]
+                qoff = np.zeros(len(host_idx) + 1, np.int64)
+                np.cumsum(hm, out=qoff[1:])
+                toff = np.zeros(len(host_idx) + 1, np.int64)
+                np.cumsum(hn, out=toff[1:])
+                qblob = bindings.gather_ranges(
+                    st.lay_blob, st.lay_off[host_idx], hm, thr)
+                tsel = _flat_ranges(t_start[host_idx], hn)
+                ops_flat, ops_off, counts = bindings.align_batch_percol(
+                    qblob, qoff, state.cur[tsel], toff, state.dcost[tsel],
+                    cfg.match, cfg.mismatch, gap, thr)
+                cnt[host_idx] = counts
+                bindings.gather_ranges(ops_flat, ops_off[:-1], counts, thr,
+                                       dst=ops_blob,
+                                       dst_off=ops_off2[:-1][host_idx])
 
         # merge round per window (native)
-        t0 = time.perf_counter()
-        res = bindings.poa_round_batch(
-            state.cur, state.off, state.w, st.item_off,
-            st.lay_blob, st.lay_off, st.layw_blob,
-            ctx["sb"].astype(np.int32), ops_blob, ops_off2,
-            final, tgs, cfg.trim, gap, cfg.candidate_frac,
-            cfg.candidate_min, ctx["max_expand"], st.win_id, st.win_rank,
-            thr, 2 * lens + 512, with_final=not final, ops_cnt=cnt)
-        self.prof["poa_round_s"] += time.perf_counter() - t0
+        with self._span("poa_round"):
+            res = bindings.poa_round_batch(
+                state.cur, state.off, state.w, st.item_off,
+                st.lay_blob, st.lay_off, st.layw_blob,
+                ctx["sb"].astype(np.int32), ops_blob, ops_off2,
+                final, tgs, cfg.trim, gap, cfg.candidate_frac,
+                cfg.candidate_min, ctx["max_expand"], st.win_id,
+                st.win_rank, thr, 2 * lens + 512, with_final=not final,
+                ops_cnt=cnt)
         return self._finish_round(res, final, active, state, lens, thr,
                                   consensus, polished)
 
@@ -352,6 +423,18 @@ class TorchConsensusStage:
         state.w = np.zeros(len(state.cur), np.int32)
         state.has_w = np.zeros(len(active), bool)
         return retired
+
+
+class _Cohort:
+    """A cohort's windows, item layout and refinement state, and its
+    round in flight."""
+
+    def __init__(self, active, st, state):
+        self.active = active
+        self.st = st
+        self.state = state
+        self.pass_no = 0
+        self.pending = None
 
 
 class _StaticItems:

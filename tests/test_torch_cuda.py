@@ -365,3 +365,66 @@ def test_cuda_polish_matches_cpu(gpu, tmp_path, monkeypatch, env):
             p.initialize()
             outs.append(p.polish(True))
     assert outs[0] == outs[1]
+
+
+def test_consensus_cohorts_equal_on_card(gpu, monkeypatch):
+    """The stage on the bench workload runs 3 cohorts by default on the
+    card, with the same bytes as one cohort."""
+    from racon_tpu_torch.models.polish_model import PolisherConfig
+    from racon_tpu_torch.ops.consensus_stage import TorchConsensusStage
+    from racon_tpu_torch.testing.synth import build_workload
+    from racon_tpu_torch.utils.logger import Logger
+
+    windows, _ = build_workload(seed=1234)
+    cfg = PolisherConfig(backend="cuda", num_threads=8, match=5,
+                         mismatch=-4, gap=-8)
+    outs, counts = [], []
+    for env in ("1", None):
+        if env is None:
+            monkeypatch.delenv("RACON_TPU_COHORTS", raising=False)
+        else:
+            monkeypatch.setenv("RACON_TPU_COHORTS", env)
+        stage = TorchConsensusStage(cfg, gpu)
+        with contextlib.redirect_stderr(io.StringIO()):
+            outs.append(stage.consensus_windows(windows, cfg, Logger()))
+        counts.append(stage.n_cohorts)
+    assert counts == [1, 3]
+    assert outs[0] == outs[1]
+
+
+def test_prefetch_matches_blocking_fetch(gpu, monkeypatch):
+    """A payload prefetched right after its launch, resolved while later
+    chunks are still queued behind it, equals a blocking .cpu() of it."""
+    from racon_tpu_torch.ops import prefetch
+
+    monkeypatch.delenv("RACON_TPU_FETCH_THREADS", raising=False)
+    geo = dict(m_cap=640, n_cap=640, w_band=128, match=5, mismatch=-4,
+               gap=-8)
+    first = None
+    for k in range(4):
+        batch = _packed(k, 4096, 640, 128)
+        payload, _, fmt = nk.align_walk_padded(*batch, **geo, device=gpu)
+        fetch = prefetch.submit(payload)
+        assert fetch.host.is_pinned()
+        if first is None:
+            first = (payload, fetch)
+    got = prefetch.resolve(*first)
+    assert fmt == "rle" and isinstance(got, np.ndarray)
+    assert np.array_equal(got, first[0].cpu().numpy())
+
+
+def test_to_device_uploads_from_pinned_memory(gpu):
+    """to_device's copies on a CUDA device leave page-locked memory
+    (named so by the profiler) and match the numpy arrays."""
+    from torch.profiler import ProfilerActivity, profile
+
+    q4, t4, dcb, m, n = _packed(3, 1024, 640, 128)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        g = to_device(q4, t4, dcb, m, n, m_cap=640, n_cap=640, device=gpu)
+        torch.cuda.synchronize()
+    copies = [e.name for e in prof.events() if "Memcpy HtoD" in e.name]
+    assert len(copies) == 5
+    assert all("Pinned" in c and "Pageable" not in c for c in copies)
+    for got, want in zip((g.q4, g.t4, g.dcb, g.m, g.n), (q4, t4, dcb, m, n)):
+        assert np.array_equal(got.cpu().numpy(), want)

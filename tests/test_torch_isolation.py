@@ -48,6 +48,7 @@ def test_no_import_of_jax_or_racon_tpu():
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, f) for f in names if f.endswith(".py")]
     assert len(files) > 30
+    assert os.path.join(PORT, "ops", "prefetch.py") in files
     bad = [(os.path.relpath(f, REPO), mod) for f in files
            for mod in _imported_roots(f) if mod in ("jax", "racon_tpu")]
     assert not bad
