@@ -81,7 +81,23 @@ Phases (each must pass, or the script exits non-zero):
      (nw_sweep_t) and each K8 variant (nw_ablate) byte for byte against
      its plain version on the first 256 items (nomoves: the score only),
      K7 against K1 (nw_sweep) on the same items packed, and the fused
-     line's payload against the walk-only line's.
+     line's payload against the walk-only line's;
+  8. (run right after phase 4, on its dataset) the multi-device path on
+     the one card: parallel/mesh.sharded_align_walk on the mesh (cuda:0,
+     cuda:0) at (640,128) B = 4097 (rle) and (10240,1024) B = 1023
+     (myers), every item byte-equal to the unsharded launch, both timed;
+     then the mesh pinned in this process (mesh.set_active_mesh): the
+     bench workload (91) and phase 4's polish (FASTA byte-equal, every
+     fused dispatch in two shards on cuda:0, K1, J1, K3 and K4 launched,
+     device busy under torch.profiler); then two processes under
+     `torch.distributed.run --standalone --nproc-per-node 2` running
+     racon_tpu_torch.testing.dist_polish on phase 4's dataset (both
+     ranks in a world of 2 on cuda:0, each aligning and polishing a share
+     and launching K1, J1, K3 and K4; rank 0's FASTA byte-equal to phase
+     4's) and `-m racon_tpu_torch.cli --distributed` on the 50 kb
+     dataset (stdout exactly the single-process CLI's FASTA). Its
+     launches go under `launches_by_path` "bench_mesh2", "mesh2" and
+     "dist2".
 Prints one JSON line of per-kernel results (the contract's keys, then
 every shape phase 2 measured under `shapes` and each run's launches
 under `launches_by_path`), the card's name and power limit, then the
@@ -98,6 +114,7 @@ import hashlib
 import io
 import json
 import os
+import signal
 import subprocess
 import sys
 import tempfile
@@ -130,6 +147,8 @@ KERNELS = {  # name -> (source, TPU kernel or jnp routine it replaces)
     "nw_sweep_block16": (CSRC + "nw_sweep16.cu",
                          "racon_tpu/ops/nw_kernel.py:1073"),
 }
+# the kernels of the main path (-w 500: K1, J1, K3, K4)
+MAIN_KERNELS = ("nw_sweep", "rle_walk", "myers_sweep", "myers_walk")
 # sources whose ptxas report (registers, spills) phase 1 prints
 PTXAS_SOURCES = ("nw_sweep.cu", "nw_sweep16.cu", "rows_walk.cu",
                  "nw_sweep_t.cu", "myers_walk.cu", "myers_sweep.cu",
@@ -825,6 +844,7 @@ def _polish_cli(tag, wd, argv):
         out = p.polish(drop_unpolished_sequences=True)
     t2 = time.perf_counter()
     counts = dict(LAUNCHES)
+    p.wall_times = (t1 - t0, t2 - t1)
     n_win = p.windows.num_windows
     a = p.align_stage.stats
     c = p.consensus_stage.prof
@@ -973,29 +993,33 @@ def _profile_polish(wd, argv, mode):
 POLISH_ARGV = ["--backend", "cuda", "-m", "5", "-x", "-4", "-g", "-8"]
 
 
-def phase_polish(wd, genome_mb, threads, results):
+def phase_polish(wd, genome_mb, threads, results, state):
     """Phase 4: the default polish path end to end at genome scale, on a
-    dataset made in `wd` (phase 6 reuses it)."""
+    dataset made in `wd` (phases 6 and 8 reuse it). Leaves in `state`
+    what phase 8 compares with: the contigs, launches and wall times of
+    the first polish and the 50 kb CLI run's FASTA."""
     from racon_tpu_torch.testing.synth import make_dataset
 
     t0 = time.perf_counter()
     true = make_dataset(wd, int(genome_mb * 1e6), 8000, 20, 0.12, seed=11)
     log(f"[polish] dataset {genome_mb} Mb, 20x 8 kb reads, 12% error, "
         f"seed 11: made in {time.perf_counter() - t0:.1f} s")
-    _, out, counts = _polish_cli("polish", wd, [*POLISH_ARGV, "-t",
+    p, out, counts = _polish_cli("polish", wd, [*POLISH_ARGV, "-t",
                                                 str(threads)])
+    state.update(out=out, counts=counts, times=p.wall_times,
+                 items=p.align_stage.stats["items"],
+                 windows=p.windows.num_windows)
     record_launches(results, "polish_w500", counts)
     ident = _identity("polish", "polished", out[0][1], true)
     log(f"[polish] polished contig sha256 "
         f"{hashlib.sha256(out[0][1]).hexdigest()}")
     if ident < 99.99:
         raise SmokeFailure(f"identity {ident:.4f}% < 99.99%")
-    mine = ("nw_sweep", "rle_walk", "myers_sweep", "myers_walk")
-    missing = [k for k in mine if counts[k] == 0]
+    missing = [k for k in MAIN_KERNELS if counts[k] == 0]
     if missing:
         raise SmokeFailure(f"kernels never launched on the default path: "
                            f"{missing}")
-    for k in (*mine, "nw_sweep_block"):
+    for k in (*MAIN_KERNELS, "nw_sweep_block"):
         results[k]["launches"] = counts[k]
     # the same path with H in int16 (RACON_TPU_DP16=1): the same FASTA
     with dp16(True):
@@ -1018,14 +1042,16 @@ def phase_polish(wd, genome_mb, threads, results):
     for tag, on, cohorts in (("int32", False, None), ("dp16", True, None),
                              ("cohorts1", False, "1")):
         with dp16(on), setenv("RACON_TPU_COHORTS", cohorts):
-            by_name = _profile_polish(wd, argv, tag)["by_name"]
-        sweeps[tag] = {k: v for k, v in by_name.items()
+            pr = _profile_polish(wd, argv, tag)
+        sweeps[tag] = {k: v for k, v in pr["by_name"].items()
                        if k.startswith("nw_sweep")}
+        if tag == "int32":
+            state["profile"] = pr
     log(f"[profile] polish() sweep kernels, int32 run: {sweeps['int32']}; "
         f"RACON_TPU_DP16=1 run: {sweeps['dp16']} ([ms, launches])")
     results["nw_sweep16"]["polish_profile"] = {
         k: sweeps[k] for k in ("int32", "dp16")}
-    _profile_cli()
+    state["cli50"] = _profile_cli()
 
 
 def _overlap_turns(wd, threads, out):
@@ -1050,16 +1076,23 @@ def _overlap_turns(wd, threads, out):
             raise SmokeFailure(f"{tag}: the FASTA differs from phase 4's")
 
 
+def cli50(wd):
+    """The 50 kb make_dataset (seed 11) of the --profile run, made in
+    `wd`; its three input paths."""
+    from racon_tpu_torch.testing.synth import make_dataset
+
+    make_dataset(wd, 50_000, 8000, 20, 0.12, seed=11)
+    return [os.path.join(wd, f) for f in
+            ("reads.fasta", "ovl.paf", "draft.fasta")]
+
+
 def _profile_cli():
     """raconx-torch --profile <dir> in a process of its own on a 50 kb
     make_dataset: the trace must name the warp sweep (K1) and the Myers
-    sweep (K3), and the FASTA must be the run's without --profile."""
-    from racon_tpu_torch.testing.synth import make_dataset
-
+    sweep (K3), and the FASTA must be the run's without --profile, which
+    is returned."""
     with tempfile.TemporaryDirectory() as wd:
-        make_dataset(wd, 50_000, 8000, 20, 0.12, seed=11)
-        inputs = [os.path.join(wd, f) for f in
-                  ("reads.fasta", "ovl.paf", "draft.fasta")]
+        inputs = cli50(wd)
         fastas = []
         for extra in ([], ["--profile", os.path.join(wd, "trace")]):
             t0 = time.perf_counter()
@@ -1087,6 +1120,277 @@ def _profile_cli():
         missing = [k for k in want if k not in text]
         if missing:
             raise SmokeFailure(f"the --profile trace lacks {missing}")
+    return fastas[0]
+
+
+MESH2 = ("cuda:0", "cuda:0")  # a two-device mesh on the one card
+
+
+def _run_group(cmd, timeout):
+    """cmd from the checkout's root in a process group of its own, its
+    output captured; the whole group (torchrun and its workers) killed if
+    it outlasts `timeout` s. Returns (returncode, stdout, stderr)."""
+    proc = subprocess.Popen(cmd, cwd=ROOT, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise SmokeFailure(f"{' '.join(cmd[2:8])} ... outlasted {timeout} s")
+    return proc.returncode, out, err
+
+
+def _wall_ms(fn, reps=3):
+    """Host ms of fn() up to the end of its device work: the mean of
+    `reps` calls after a warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def phase_multi(wd, threads, results, state):
+    """Phase 8: the multi-device path (parallel/mesh.py, parallel/dist.py)
+    on the one card, after phase 4 and on its dataset: the sharded
+    kernels, an in-process mesh of (cuda:0, cuda:0), and two processes
+    under torchrun. It shows what splitting costs, not a scaling."""
+    _sharded_kernels(results)
+    _mesh_polish(wd, threads, results, state)
+    _dist_polish(wd, threads, results, state)
+
+
+def _sharded_kernels(results):
+    """mesh.sharded_align_walk on MESH2 at (640,128) B = 4097 (fmt rle,
+    consensus scores) and (10240,1024) B = 1023 (fmt myers; odd B, so the
+    shards are uneven): each shard on cuda:0 with the sizes
+    dist.shard_range gives, and every item's payload and score equal to
+    the unsharded launch's; both timed from the packed numpy batch to the
+    end of the device work."""
+    import numpy as np
+    import torch
+
+    from racon_tpu_torch.ops import myers_kernel as mk
+    from racon_tpu_torch.ops import nw_kernel as nk
+    from racon_tpu_torch.ops.batch import to_device
+    from racon_tpu_torch.parallel import dist, mesh
+
+    dev = torch.device("cuda", 0)
+    mesh2 = mesh.window_mesh(MESH2)
+    rng = np.random.default_rng(8)
+    for cap, W, B, fmt, sc in (
+            (640, 128, 4097, "rle", dict(match=5, mismatch=-4, gap=-8)),
+            (10240, 1024, 1023, "myers", dict(match=0, mismatch=-1,
+                                               gap=-1))):
+        geo = dict(m_cap=cap, n_cap=cap, w_band=W)
+        q4, t4, dcb, m, n = make_items(rng, B, cap, W, sc["gap"])
+
+        def sharded():
+            return mesh.sharded_align_walk(mesh2, q4, t4, dcb, m, n, **geo,
+                                           **sc, fmt=fmt)
+
+        def whole():
+            g = to_device(q4, t4, None if fmt == "myers" else dcb, m, n,
+                          m_cap=cap, n_cap=cap, device=dev)
+            if fmt == "myers":
+                planes = mk.myers_sweep(g.q4, g.t4, **geo)
+                return (mk.myers_walk(planes, g.m, g.n, **geo),
+                        torch.zeros_like(g.m))
+            moves, score = nk.nw_sweep(g.q4, g.t4, g.dcb, **geo, **sc)
+            return nk.rle_walk(moves, g.m, g.n, **geo), score
+
+        payloads, scores = sharded()
+        sizes = [len(p) for p in payloads]
+        want_sizes = [hi - lo for lo, hi in (dist.shard_range(B, i, 2)
+                                             for i in range(2))]
+        devices = {str(t.device) for t in payloads + scores}
+        if sizes != want_sizes or devices != {"cuda:0"}:
+            raise SmokeFailure(f"sharded {fmt}: shards of {sizes} items on "
+                               f"{devices}, expected {want_sizes} on cuda:0")
+        want_p, want_s = whole()
+        err = max(compare(f"sharded {fmt} payload", torch.cat(payloads),
+                          want_p.cpu()),
+                  compare(f"sharded {fmt} score", torch.cat(scores),
+                          want_s.cpu()))
+        t_whole, t_sharded = _wall_ms(whole), _wall_ms(sharded)
+        walk = "myers_walk" if fmt == "myers" else "rle_walk"
+        results[walk]["mesh2_dispatch"] = dict(
+            shape=[cap, W, B], shards=sizes, max_abs_err=err,
+            sharded_ms=t_sharded, unsharded_ms=t_whole)
+        log(f"[mesh2] sharded_align_walk {fmt} ({cap},{W}) B={B} on "
+            f"{list(MESH2)}: shards {sizes}, every item's payload and score "
+            f"byte-equal to the unsharded launch's; upload + kernels "
+            f"{t_sharded:.3f} ms sharded, {t_whole:.3f} ms unsharded")
+
+
+def _mesh_polish(wd, threads, results, state):
+    """The bench workload and phase 4's polish in this process with the
+    mesh pinned to MESH2 (mesh.set_active_mesh): edit distance 91, the
+    FASTA byte-equal to phase 4's, every fused dispatch split into two
+    shards on cuda:0 (mesh.sharded_align_walk watched), each kernel of the
+    main path launched once a shard; then initialize and polish once more
+    under torch.profiler: device busy."""
+    from racon_tpu_torch.kernels import LAUNCHES, reset_launches
+    from racon_tpu_torch.models.polish_model import PolisherConfig
+    from racon_tpu_torch.native import bindings
+    from racon_tpu_torch.ops.consensus_stage import TorchConsensusStage
+    from racon_tpu_torch.parallel import mesh
+    from racon_tpu_torch.testing.synth import build_workload
+    from racon_tpu_torch.utils.logger import Logger
+
+    real = mesh.sharded_align_walk
+    seen = {"calls": 0, "shards": 0, "devices": set(), "short": 0}
+
+    def watch(m, q4, *args, **kwargs):
+        payloads, scores = real(m, q4, *args, **kwargs)
+        seen["calls"] += 1
+        seen["shards"] += len(payloads)
+        seen["short"] += len(payloads) != min(2, len(q4))
+        seen["devices"].update(str(p.device) for p in payloads)
+        return payloads, scores
+
+    argv = [*POLISH_ARGV, "-t", str(threads)]
+    mesh.sharded_align_walk = watch
+    mesh.set_active_mesh(MESH2)
+    try:
+        windows, true = build_workload(seed=1234)
+        cfg = PolisherConfig(backend="cuda", num_threads=threads, match=5,
+                             mismatch=-4, gap=-8)
+        stage = TorchConsensusStage(cfg, "cuda")
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stderr(io.StringIO()):
+            cons, _ = stage.consensus_windows(windows, cfg, Logger())
+        dt = time.perf_counter() - t0
+        d = bindings.edit_distance(b"".join(cons), true.tobytes())
+        record_launches(results, "bench_mesh2", dict(LAUNCHES))
+        log(f"[mesh2] bench workload on {list(MESH2)}: {dt:.3f} s, edit "
+            f"distance to truth {d}; launches {dict(LAUNCHES)}")
+        if d != 91:
+            raise SmokeFailure(f"mesh2 bench edit distance {d} != 91")
+        for k in seen:
+            seen[k] = set() if k == "devices" else 0
+        p, out, counts = _polish_cli("mesh2", wd, argv)
+        record_launches(results, "mesh2", counts)
+        walks = state["counts"]["rle_walk"] + state["counts"]["myers_walk"]
+        log(f"[mesh2] 4.6 Mb polish: {seen['calls']} fused dispatches (phase "
+            f"4: {walks}) in {seen['shards']} shards on "
+            f"{sorted(seen['devices'])}; initialize {p.wall_times[0]:.3f} "
+            f"s, polish {p.wall_times[1]:.3f} s (phase 4: "
+            f"{state['times'][0]:.3f}, {state['times'][1]:.3f} s); FASTA "
+            f"sha256 {hashlib.sha256(out[0][1]).hexdigest()}")
+        if out != state["out"]:
+            raise SmokeFailure("the mesh2 polish differs from phase 4's")
+        shards = counts["rle_walk"] + counts["myers_walk"]
+        if (seen["calls"] != walks or seen["short"]
+                or seen["devices"] != {"cuda:0"}
+                or seen["shards"] != shards
+                or any(not counts[k] for k in MAIN_KERNELS)):
+            raise SmokeFailure(f"mesh2 polish: dispatches {seen}, launches "
+                               f"{counts}; phase 4 launched "
+                               f"{state['counts']}")
+        pr = _profile_polish(wd, argv, "mesh2")
+        ref = state["profile"]
+        log(f"[mesh2] polish() device busy {pr['busy']:.3f} s of "
+            f"{pr['wall']:.3f} s profiled (phase 4: {ref['busy']:.3f} s of "
+            f"{ref['wall']:.3f} s)")
+        for k in MAIN_KERNELS:
+            results[k]["mesh2"] = dict(
+                launches=counts[k], initialize_s=p.wall_times[0],
+                polish_s=p.wall_times[1], busy_s=pr["busy"],
+                phase4=dict(launches=state["counts"][k],
+                            initialize_s=state["times"][0],
+                            polish_s=state["times"][1],
+                            busy_s=ref["busy"]))
+    finally:
+        mesh.sharded_align_walk = real
+        mesh.clear_active_mesh()
+
+
+def _dist_polish(wd, threads, results, state):
+    """Two processes on the one card: `python -m torch.distributed.run
+    --standalone --nproc-per-node 2 -m racon_tpu_torch.testing.dist_polish`
+    on phase 4's dataset (each with half the host threads): both ranks in
+    a world of 2 on cuda:0, each aligning and polishing a share only and
+    launching every kernel of the main path, rank 0's FASTA byte-equal to
+    phase 4's; then the CLI itself, `... -m racon_tpu_torch.cli
+    --distributed`, on the 50 kb dataset of phase 4's --profile run: its
+    stdout exactly the single-process CLI's FASTA."""
+    torchrun = [sys.executable, "-m", "torch.distributed.run",
+                "--standalone", "--nproc-per-node", "2"]
+    inputs = [os.path.join(wd, f) for f in
+              ("reads.fasta", "ovl.paf", "draft.fasta")]
+    half = ["-t", str(max(1, threads // 2))]
+    with tempfile.TemporaryDirectory() as rep:
+        t0 = time.perf_counter()
+        rc, _, err = _run_group([*torchrun, "-m",
+                                 "racon_tpu_torch.testing.dist_polish",
+                                 "--report", rep, "--", *POLISH_ARGV, *half,
+                                 *inputs], 600)
+        dt = time.perf_counter() - t0
+        if rc:
+            raise SmokeFailure(f"torchrun dist_polish exited {rc}: "
+                               f"{err.decode()[-3000:]}")
+        ranks = []
+        for r in range(2):
+            with open(os.path.join(rep, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        with open(os.path.join(rep, "polished.fasta"), "rb") as f:
+            fasta = f.read()
+    total = {k: sum(x["launches"][k] for x in ranks)
+             for k in ranks[0]["launches"]}
+    record_launches(results, "dist2", total)
+    for x in ranks:
+        launched = {k: c for k, c in x["launches"].items() if c}
+        log(f"[dist2] rank {x['rank']} of {x['world_size']} on cuda:"
+            f"{x['current_device']} (local devices {x['local_devices']}, "
+            f"stage on {x['stage_device']}): aligned {x['align_items']} "
+            f"overlaps, polished {x['consensus_windows']} windows; "
+            f"initialize {x['initialize_s']:.3f} s (of it loading the "
+            f"kernels {x['kernel_load_s']:.3f} s), polish "
+            f"{x['polish_s']:.3f} s; launches {launched}")
+    log(f"[dist2] torchrun command {dt:.3f} s in all (phase 4 in one "
+        f"process: initialize {state['times'][0]:.3f} s, polish "
+        f"{state['times'][1]:.3f} s)")
+    want = b"".join(b">" + n + b"\n" + d + b"\n" for n, d in state["out"])
+    bad = [x["rank"] for x in ranks if not (
+        x["world_size"] == 2 and x["current_device"] == 0
+        and x["local_devices"] == ["cuda:0"]
+        and all(x["launches"][k] for k in MAIN_KERNELS)
+        and 0 < x["align_items"] < state["items"])]
+    if ([x["rank"] for x in ranks] != [0, 1] or bad
+            or sum(x["align_items"] for x in ranks) != state["items"]
+            or sum(x["consensus_windows"] for x in ranks)
+            != state["windows"]):
+        raise SmokeFailure(f"dist2: ranks {bad} at fault: {ranks}")
+    if fasta != want:
+        raise SmokeFailure("dist2: rank 0's FASTA differs from phase 4's")
+    for k in MAIN_KERNELS:
+        results[k]["dist2"] = dict(
+            launches=[x["launches"][k] for x in ranks],
+            initialize_s=[x["initialize_s"] for x in ranks],
+            kernel_load_s=[x["kernel_load_s"] for x in ranks],
+            polish_s=[x["polish_s"] for x in ranks], command_s=dt)
+    log("[dist2] both ranks in a world of 2 on cuda:0, each on its share; "
+        "rank 0's FASTA byte-equal to phase 4's")
+    with tempfile.TemporaryDirectory() as wd50:
+        t0 = time.perf_counter()
+        rc, out, err = _run_group([*torchrun, "-m", "racon_tpu_torch.cli",
+                                   "--distributed", *POLISH_ARGV, *half,
+                                   *cli50(wd50)], 300)
+        if rc:
+            raise SmokeFailure(f"torchrun raconx-torch --distributed exited "
+                               f"{rc}: {err.decode()[-3000:]}")
+    log(f"[dist2] torchrun raconx-torch --distributed on 50 kb: "
+        f"{time.perf_counter() - t0:.1f} s, stdout {len(out)} bytes")
+    if out != state["cli50"]:
+        raise SmokeFailure("torchrun raconx-torch --distributed: stdout is "
+                           "not the single-process CLI's FASTA")
 
 
 def short_reads(wd):
@@ -1410,6 +1714,7 @@ def main() -> int:
                    "bound_by": None, "library_ms": None, "shapes": [],
                    "launches_by_path": {}}
                for k, (src, rep) in KERNELS.items()}
+    state = {}  # what phase 4 leaves for phase 8
     t0 = time.perf_counter()
     try:
         with tempfile.TemporaryDirectory() as wd4, \
@@ -1419,7 +1724,8 @@ def main() -> int:
                           lambda: phase_kernels16(results),
                           lambda: phase_bench(threads, results),
                           lambda: phase_polish(wd4, args.genome_mb, threads,
-                                               results),
+                                               results, state),
+                          lambda: phase_multi(wd4, threads, results, state),
                           lambda: phase_wide(wd5, args.wide_genome_mb,
                                              threads, results),
                           lambda: phase_align(

@@ -5,15 +5,21 @@ Same positional arguments, options, defaults, FASTA-on-stdout contract and
 error messages as racon_tpu/cli.py, with the backends auto (= cuda),
 cuda, native and python. racon's CUDA flags (-c/-b/--cudaaligner-*)
 select the cuda backend. --profile <dir> writes a torch.profiler trace of
-create_polisher -> initialize -> polish into <dir>. Not available here:
---distributed (multi-GPU is a later slice). The arguments and the input files are
-checked before the backend is resolved, so racon's own error messages
-come first; without a GPU, auto and cuda then exit 1 with a message.
+create_polisher -> initialize -> polish into <dir>. --distributed (or
+RACON_TPU_DISTRIBUTED=1) runs one of several processes started by
+torchrun (`python -m torch.distributed.run --nproc-per-node N -m
+racon_tpu_torch.cli --distributed ...`): the gloo group comes up from
+torchrun's environment before any device use, each process aligns and
+polishes its shard on its own GPUs, and rank 0 alone prints the FASTA.
+The arguments and the input files are checked before the backend is
+resolved, so racon's own error messages come first; without a GPU, auto
+and cuda then exit 1 with a message.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from . import RACON_VERSION
@@ -85,6 +91,13 @@ HELP = """usage: racon [options ...] <sequences> <overlaps> <target sequences>
             write a torch.profiler trace (host and, on a GPU, device
             activity) of the run into <dir>, as Chrome-trace JSON that
             TensorBoard and Perfetto read
+        --distributed
+            one process of a multi-process run started by torchrun:
+            initialize torch.distributed (gloo) from torchrun's
+            environment (MASTER_ADDR / MASTER_PORT / WORLD_SIZE / RANK),
+            shard overlap alignment and window consensus per process,
+            each process on its own GPUs (LOCAL_RANK), gather to rank 0
+            for output (also enabled by RACON_TPU_DISTRIBUTED=1)
         --version
             prints the version number
         -h, --help
@@ -126,6 +139,7 @@ def parser() -> argparse.ArgumentParser:
     p.add_argument("--candidate-frac", type=float, default=0.15)
     p.add_argument("--candidate-min", type=int, default=2)
     p.add_argument("--profile", type=str, default=None)
+    p.add_argument("--distributed", action="store_true")
     # racon's CUDA options (src/main.cpp:37-40) select the cuda backend;
     # batch sizing is automatic, so the counts only act as a switch
     p.add_argument("-c", "--cudapoa-batches", type=int, nargs="?", const=1,
@@ -212,6 +226,18 @@ def main(argv: list[str] | None = None) -> int:
         sys.stderr.write("[racon::] error: missing input file(s)!\n")
         print(HELP, end="")
         return 1
+    out = sys.stdout.buffer
+    if args.distributed or os.environ.get("RACON_TPU_DISTRIBUTED") == "1":
+        # keep fd 1 for the FASTA: a private handle on the real stdout
+        # carries the records, and fd 1 points at stderr, where any
+        # library chatter then lands
+        sys.stdout.flush()
+        out = os.fdopen(os.dup(1), "wb")
+        os.dup2(2, 1)
+        # before any device use, so each process takes its own GPUs
+        from .parallel import dist
+
+        dist.initialize()
     profiler = _start_profiler(args.profile) if args.profile else None
     try:
         polisher = create_polisher(args.inputs[0], args.inputs[1],
@@ -227,8 +253,7 @@ def main(argv: list[str] | None = None) -> int:
     finally:
         if profiler is not None:
             _stop_profiler(profiler)
-    out = sys.stdout.buffer
-    for name, data in polished:
+    for name, data in polished:  # [] on every rank but 0
         out.write(b">" + name + b"\n" + data + b"\n")
     out.flush()
     polisher.total()

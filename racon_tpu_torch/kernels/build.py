@@ -48,8 +48,8 @@ def kernels():
     """The loaded kernel module: `nw_sweep`, `nw_sweep16`, `rle_walk`,
     `rows_walk`,
     `packed_walk`, `myers_sweep`, `myers_walk` and `nw_sweep_t`, each
-    taking CUDA tensors (outputs preallocated by the caller) and launching
-    on the current stream."""
+    taking CUDA tensors on one device (outputs preallocated by the caller)
+    and launching under that device, on its current stream."""
     global _kernels, build_seconds
     with _lock:
         if _kernels is None:
@@ -130,9 +130,12 @@ class _CtypesKernels:
         self._lib = lib
 
     @staticmethod
-    def _check(t, name, dtype, shape):
+    def _check(t, name, dtype, shape, device):
         if not t.is_cuda:
             raise ValueError(f"{name} must be a CUDA tensor")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, the launch on "
+                             f"{device}")
         if t.dtype != dtype:
             raise ValueError(f"{name} has dtype {t.dtype}, expected {dtype}")
         if tuple(t.shape) != tuple(shape):
@@ -142,9 +145,19 @@ class _CtypesKernels:
             raise ValueError(f"{name} must be contiguous")
         return ctypes.c_void_p(t.data_ptr()) if t.numel() else None
 
-    def _call(self, fn, *args):
-        rc = fn(*args, ctypes.c_void_p(
-            torch.cuda.current_stream().cuda_stream))
+    @staticmethod
+    def _device(first, name):
+        """The device of a launch: its first tensor's, a CUDA one."""
+        if not first.is_cuda:
+            raise ValueError(f"{name} must be a CUDA tensor")
+        return first.device
+
+    def _call(self, fn, device, *args):
+        """fn under `device` (so the launcher's cudaFuncSetAttribute calls
+        apply to it), on that device's current stream."""
+        with torch.cuda.device(device):
+            rc = fn(*args, ctypes.c_void_p(
+                torch.cuda.current_stream(device).cuda_stream))
         if rc != 0:
             raise RuntimeError("kernel launch failed: "
                                + self._lib.rtt_error_string(rc).decode())
@@ -152,101 +165,112 @@ class _CtypesKernels:
     def nw_sweep(self, q4, t4, dcb, moves, score, m_cap, n_cap, W, match,
                  mismatch, gap, span):
         B = q4.shape[0]
+        dev = self._device(q4, "q4")
         lanes = 1 if W <= 1024 else (2 if W <= 2048 else 4)
         if not (W % (32 * lanes) == 0 and W <= 4096
                 and m_cap % 16 == 0 and n_cap % 32 == 0
                 and n_cap - m_cap - W // 2 <= 0):
             raise ValueError("nw_sweep: unsupported geometry")
-        ptrs = [self._check(q4, "q4", torch.uint8, (B, m_cap // 2)),
-                self._check(t4, "t4", torch.uint8, (B, n_cap // 2)),
-                self._check(dcb, "dcb", torch.uint8, (B, n_cap // 8)),
+        ptrs = [self._check(q4, "q4", torch.uint8, (B, m_cap // 2), dev),
+                self._check(t4, "t4", torch.uint8, (B, n_cap // 2), dev),
+                self._check(dcb, "dcb", torch.uint8, (B, n_cap // 8), dev),
                 self._check(moves, "moves", torch.int32,
-                            (B, m_cap // 16, W)),
-                self._check(score, "score", torch.int32, (B,))]
-        self._call(self._lib.rtt_nw_sweep, *ptrs, B, m_cap, n_cap, W, match,
-                   mismatch, gap, span)
+                            (B, m_cap // 16, W), dev),
+                self._check(score, "score", torch.int32, (B,), dev)]
+        self._call(self._lib.rtt_nw_sweep, dev, *ptrs, B, m_cap, n_cap, W,
+                   match, mismatch, gap, span)
 
     def nw_sweep16(self, q4, t4, dcb, moves, score, m_cap, n_cap, W, match,
                    mismatch, gap, span, neg):
         B = q4.shape[0]
+        dev = self._device(q4, "q4")
         if not (W % 32 == 0 and 0 < W <= 1024 and m_cap % 16 == 0
                 and n_cap % 32 == 0 and n_cap - m_cap - W // 2 <= 0
                 and -15000 <= neg < 0):
             raise ValueError("nw_sweep16: unsupported geometry")
-        ptrs = [self._check(q4, "q4", torch.uint8, (B, m_cap // 2)),
-                self._check(t4, "t4", torch.uint8, (B, n_cap // 2)),
-                self._check(dcb, "dcb", torch.uint8, (B, n_cap // 8)),
+        ptrs = [self._check(q4, "q4", torch.uint8, (B, m_cap // 2), dev),
+                self._check(t4, "t4", torch.uint8, (B, n_cap // 2), dev),
+                self._check(dcb, "dcb", torch.uint8, (B, n_cap // 8), dev),
                 self._check(moves, "moves", torch.int32,
-                            (B, m_cap // 16, W)),
-                self._check(score, "score", torch.int32, (B,))]
-        self._call(self._lib.rtt_nw_sweep16, *ptrs, B, m_cap, n_cap, W,
+                            (B, m_cap // 16, W), dev),
+                self._check(score, "score", torch.int32, (B,), dev)]
+        self._call(self._lib.rtt_nw_sweep16, dev, *ptrs, B, m_cap, n_cap, W,
                    match, mismatch, gap, span, neg)
 
     def rle_walk(self, moves, m, n, payload, m_cap, n_cap, W, E):
         B = moves.shape[0]
+        dev = self._device(moves, "moves")
         ptrs = [self._check(moves, "moves", torch.int32,
-                            (B, m_cap // 16, W)),
-                self._check(m, "m", torch.int32, (B,)),
-                self._check(n, "n", torch.int32, (B,)),
-                self._check(payload, "payload", torch.uint8, (B, E + 1))]
-        self._call(self._lib.rtt_rle_walk, *ptrs, B, m_cap, n_cap, W, E)
+                            (B, m_cap // 16, W), dev),
+                self._check(m, "m", torch.int32, (B,), dev),
+                self._check(n, "n", torch.int32, (B,), dev),
+                self._check(payload, "payload", torch.uint8, (B, E + 1),
+                            dev)]
+        self._call(self._lib.rtt_rle_walk, dev, *ptrs, B, m_cap, n_cap, W, E)
 
     def rows_walk(self, moves, m, n, payload, m_cap, n_cap, W):
         B = moves.shape[0]
+        dev = self._device(moves, "moves")
         ptrs = [self._check(moves, "moves", torch.int32,
-                            (B, m_cap // 16, W)),
-                self._check(m, "m", torch.int32, (B,)),
-                self._check(n, "n", torch.int32, (B,)),
+                            (B, m_cap // 16, W), dev),
+                self._check(m, "m", torch.int32, (B,), dev),
+                self._check(n, "n", torch.int32, (B,), dev),
                 self._check(payload, "payload", torch.uint8,
-                            (B, m_cap + 2))]
-        self._call(self._lib.rtt_rows_walk, *ptrs, B, m_cap, n_cap, W)
+                            (B, m_cap + 2), dev)]
+        self._call(self._lib.rtt_rows_walk, dev, *ptrs, B, m_cap, n_cap, W)
 
     def packed_walk(self, moves, m, n, payload, m_cap, n_cap, W, S):
         B = moves.shape[0]
+        dev = self._device(moves, "moves")
         if S % 4:
             raise ValueError("packed_walk: step budget must be a multiple "
                              "of 4")
         ptrs = [self._check(moves, "moves", torch.int32,
-                            (B, m_cap // 16, W)),
-                self._check(m, "m", torch.int32, (B,)),
-                self._check(n, "n", torch.int32, (B,)),
+                            (B, m_cap // 16, W), dev),
+                self._check(m, "m", torch.int32, (B,), dev),
+                self._check(n, "n", torch.int32, (B,), dev),
                 self._check(payload, "payload", torch.uint8,
-                            (B, S // 4 + 1))]
-        self._call(self._lib.rtt_packed_walk, *ptrs, B, m_cap, n_cap, W, S)
+                            (B, S // 4 + 1), dev)]
+        self._call(self._lib.rtt_packed_walk, dev, *ptrs, B, m_cap, n_cap,
+                   W, S)
 
     def myers_sweep(self, q4, t4, planes, m_cap, n_cap, W):
         B = q4.shape[0]
+        dev = self._device(q4, "q4")
         if not (W % 32 == 0 and W <= 4096 and m_cap == n_cap):
             raise ValueError("myers_sweep: unsupported geometry")
-        ptrs = [self._check(q4, "q4", torch.uint8, (B, m_cap // 2)),
-                self._check(t4, "t4", torch.uint8, (B, n_cap // 2)),
+        ptrs = [self._check(q4, "q4", torch.uint8, (B, m_cap // 2), dev),
+                self._check(t4, "t4", torch.uint8, (B, n_cap // 2), dev),
                 self._check(planes, "planes", torch.int32,
-                            (B, m_cap, 2, W // 32))]
-        self._call(self._lib.rtt_myers_sweep, *ptrs, B, m_cap, n_cap, W)
+                            (B, m_cap, 2, W // 32), dev)]
+        self._call(self._lib.rtt_myers_sweep, dev, *ptrs, B, m_cap, n_cap, W)
 
     def myers_walk(self, planes, m, n, payload, m_cap, n_cap, W):
         B = planes.shape[0]
+        dev = self._device(planes, "planes")
         ptrs = [self._check(planes, "planes", torch.int32,
-                            (B, m_cap, 2, W // 32)),
-                self._check(m, "m", torch.int32, (B,)),
-                self._check(n, "n", torch.int32, (B,)),
+                            (B, m_cap, 2, W // 32), dev),
+                self._check(m, "m", torch.int32, (B,), dev),
+                self._check(n, "n", torch.int32, (B,), dev),
                 self._check(payload, "payload", torch.uint8,
-                            (B, m_cap + 2))]
-        self._call(self._lib.rtt_myers_walk, *ptrs, B, m_cap, n_cap, W)
+                            (B, m_cap + 2), dev)]
+        self._call(self._lib.rtt_myers_walk, dev, *ptrs, B, m_cap, n_cap, W)
 
     def nw_sweep_t(self, q, tp, gcp, moves, score, m_cap, n_cap, W, match,
                    mismatch, gap, span, variant):
         B = q.shape[0]
+        dev = self._device(q, "q")
         if not (W % 32 == 0 and 0 < W <= 1024 and m_cap % 128 == 0
                 and 2 * (n_cap - m_cap) + W >= 0):
             raise ValueError("nw_sweep_t: unsupported geometry")
         if not 0 <= variant <= 4:
             raise ValueError(f"nw_sweep_t: unknown variant {variant}")
-        ptrs = [self._check(q, "q", torch.int32, (B, m_cap)),
-                self._check(tp, "tp", torch.int32, (B, n_cap + 2 * W)),
-                self._check(gcp, "gcp", torch.int32, (B, n_cap + 1 + 2 * W)),
+        ptrs = [self._check(q, "q", torch.int32, (B, m_cap), dev),
+                self._check(tp, "tp", torch.int32, (B, n_cap + 2 * W), dev),
+                self._check(gcp, "gcp", torch.int32, (B, n_cap + 1 + 2 * W),
+                            dev),
                 self._check(moves, "moves", torch.int32,
-                            (B, m_cap // 16, W)),
-                self._check(score, "score", torch.int32, (B,))]
-        self._call(self._lib.rtt_nw_sweep_t, *ptrs, B, m_cap, n_cap, W,
+                            (B, m_cap // 16, W), dev),
+                self._check(score, "score", torch.int32, (B,), dev)]
+        self._call(self._lib.rtt_nw_sweep_t, dev, *ptrs, B, m_cap, n_cap, W,
                    match, mismatch, gap, span, variant)

@@ -13,7 +13,9 @@ scored sweep at (match, mismatch, gap) = (0, -1, -1) with unit deletion
 costs and the walk walk_fmt picks (rle or rows, as RACON_TPU_WALK says,
 at W <= 1024; packed2 at the W = 4096 tiers). Items beyond the last tier
 or escaping the band are aligned by the host C++ aligner, as in the
-reference.
+reference. On an active mesh (parallel/mesh.py) every chunk is split over
+its devices and its payload comes back as per-shard tensors, which
+ops/prefetch.resolve joins in shard order before the decode.
 
 Left out of the port, each for a reason recorded in ROADMAP.md:
 `small_batch_to_host` (keyed on the JAX prewarm state) and the slow-link
@@ -56,7 +58,8 @@ def _chunk_size(cap: int, band: int, myers: bool) -> int:
     """Items per launch of a tier: on the Myers route as many as the
     planes budget allows (cap x 2 x band/8 bytes an item: 1024 at
     (10240,1024), 409 at (40960,1024) and (10240,4096)), on the scored
-    route as many as the move-word budget allows; at most _MAX_ITEMS."""
+    route as many as the move-word budget allows; at most _MAX_ITEMS.
+    The budgets are per chunk: on a mesh of k devices each holds 1/k."""
     if myers:
         per_item = cap * 2 * (band // 8)
         return max(16, min(_MAX_ITEMS, _PLANES_BUDGET // per_item))

@@ -19,6 +19,11 @@ runs on the device), the padded-batch ladder (a kernel launch takes any
 batch size, so chunks launch at their exact size), and the device-resident
 gather form and the prewarm family.
 
+On an active mesh (parallel/mesh.py) each chunk is split over its
+devices, the shards launched on every device before the host waits on
+any, and ops/prefetch.resolve joins the shards' payloads in shard order,
+so the bytes do not depend on the mesh.
+
 The host/device overlap is the reference's: the windows run in cohorts
 (_auto_cohorts) whose rounds interleave, every chunk's payload fetch is
 started right behind its launches (ops/prefetch.py) and waited for only
@@ -131,6 +136,7 @@ class TorchConsensusStage:
         # per refinement pass: items per (cap, band) tier, -1 = host
         self.tier_items: list[dict] = []
         self.n_cohorts = 0  # cohorts of the last consensus_windows()
+        self.n_windows = 0  # windows of the last consensus_windows()
         self._ops_scratch = np.empty(0, np.int32)  # decode buffer
 
     def consensus_windows(self, windows, cfg, logger):
@@ -138,7 +144,7 @@ class TorchConsensusStage:
 
         self.prof = defaultdict(float)
         self.tier_items = []
-        n_win = windows.num_windows
+        n_win = self.n_windows = windows.num_windows
         tgs = windows.window_type == WINDOW_TYPE_TGS
 
         # windows with < 2 layers pass through (reference: src/window.cpp)

@@ -26,7 +26,7 @@ from ..kernels import LAUNCHES
 from .batch import to_device, unpack_codes
 from .geometry import (NW_CODES, REC_DIAG, REC_UP, band_dlo, guard_bits,
                        myers_fits, peq_words, rows_payload_width)
-from .nw_kernel import _as_int32_bits, _device_kind
+from .nw_kernel import _as_int32_bits, _device_kind, _mesh_for
 
 _M32 = 0xFFFFFFFF
 
@@ -240,7 +240,18 @@ def align_walk_myers_padded(q4, t4, m, n, *, m_cap, n_cap, w_band, device):
     (payload (B, m_cap + 2) uint8, score zeros (B,) int32, "rows") on that
     device (decode with bindings.opstream_rows_to_ops_batch). As in the
     reference, the edit-distance stage produces no score. The batch is not
-    padded: a kernel launch takes any B."""
+    padded: a kernel launch takes any B. On an active mesh of `device`'s
+    type (nw_kernel.align_walk_padded) the batch is split over it and
+    payload and score are lists of per-shard tensors; the payload stays
+    "rows", as the reference's does on a mesh."""
+    mesh = _mesh_for(device)
+    if mesh is not None:
+        from ..parallel.mesh import sharded_align_walk
+
+        payload, score = sharded_align_walk(
+            mesh, q4, t4, None, m, n, m_cap=m_cap, n_cap=n_cap,
+            w_band=w_band, match=0, mismatch=-1, gap=-1, fmt="myers")
+        return payload, score, "rows"
     batch = to_device(q4, t4, None, m, n, m_cap=m_cap, n_cap=n_cap,
                       device=device)
     planes = myers_sweep(batch.q4, batch.t4, m_cap=m_cap, n_cap=n_cap,

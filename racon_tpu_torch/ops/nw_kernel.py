@@ -515,6 +515,18 @@ def packed_walk_plain(moves, m, n, *, m_cap, n_cap, w_band, max_steps=None):
 # ------------------------------------------------------------ fused call
 
 
+def _mesh_for(device):
+    """The active mesh (parallel.mesh.active_mesh) when its devices are of
+    `device`'s type, else None: a stage asked for the CPU (the tests) is
+    never sent to the GPUs of a derived mesh."""
+    from ..parallel.mesh import active_mesh
+
+    mesh = active_mesh()
+    if mesh is None or mesh[0].type != torch.device(device).type:
+        return None
+    return mesh
+
+
 def walk_fmt(w_band: int) -> str:
     """Payload format of a scored-sweep tier (nw_kernel.py:2129-2160 on a
     real chip): "packed2" at the lane-major tiers (W = 2048, 4096); where
@@ -551,13 +563,25 @@ def align_walk_padded(q4, t4, dcb, m, n, *, m_cap, n_cap, w_band, match,
     score (B,) int32, fmt) on that device, in the reference's payload
     format: fmt "rle", "rows" or "packed2", as walk_fmt picks (decode
     with payload_decoder). Unlike the reference there is no padding of the
-    batch: a kernel launch takes any B."""
+    batch: a kernel launch takes any B. When parallel.mesh.active_mesh()
+    holds devices of `device`'s type, the batch is split over them
+    instead (mesh.sharded_align_walk) and payload and score are lists of
+    per-shard tensors, in shard order (ops/prefetch.resolve joins
+    them)."""
+    fmt = walk_fmt(w_band)
+    mesh = _mesh_for(device)
+    if mesh is not None:
+        from ..parallel.mesh import sharded_align_walk
+
+        payload, score = sharded_align_walk(
+            mesh, q4, t4, dcb, m, n, m_cap=m_cap, n_cap=n_cap,
+            w_band=w_band, match=match, mismatch=mismatch, gap=gap, fmt=fmt)
+        return payload, score, fmt
     batch = to_device(q4, t4, dcb, m, n, m_cap=m_cap, n_cap=n_cap,
                       device=device)
     moves, score = nw_sweep(batch.q4, batch.t4, batch.dcb, m_cap=m_cap,
                             n_cap=n_cap, w_band=w_band, match=match,
                             mismatch=mismatch, gap=gap)
-    fmt = walk_fmt(w_band)
     walk = {"rle": rle_walk, "rows": rows_walk, "packed2": packed_walk}[fmt]
     payload = walk(moves, batch.m, batch.n, m_cap=m_cap, n_cap=n_cap,
                    w_band=w_band)

@@ -10,6 +10,11 @@ own launches, and records an event behind it; `resolve` waits on that
 event only. The copy engine does the work the reference's worker threads
 did, so no thread is started and none can block interpreter exit.
 
+On a mesh (parallel/mesh.py) a chunk's payload is a list of shards, one
+tensor per device: each shard's copy and event go on its own device's
+stream, and `resolve` waits on each shard's own event and joins the
+shards on the host in shard order.
+
 RACON_TPU_FETCH_THREADS keeps the reference's knob and its meaning: 0
 fetches inline at drain time (blocking), a positive value (default 4) or
 a malformed one prefetches. On a CPU tensor both calls are plain
@@ -44,29 +49,50 @@ def enabled() -> bool:
         return True
 
 
-def submit(payload: torch.Tensor) -> Fetch | None:
-    """Start the host copy of a just-launched payload: a Fetch for
-    resolve(), or None when prefetch is off (resolve then fetches
-    inline)."""
-    if not enabled():
-        return None
+def _submit_one(payload: torch.Tensor) -> Fetch:
     if payload.device.type == "cpu":
         return Fetch(payload.numpy(), None)
-    host = torch.empty(payload.shape, dtype=payload.dtype, pin_memory=True)
-    host.copy_(payload, non_blocking=True)
-    event = torch.cuda.Event()
-    event.record()
+    # the copy runs on the payload device's current stream; the event must
+    # be recorded there too, not on the current device's
+    with torch.cuda.device(payload.device):
+        host = torch.empty(payload.shape, dtype=payload.dtype,
+                           pin_memory=True)
+        host.copy_(payload, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(payload.device))
     return Fetch(host, event)
 
 
-def resolve(payload: torch.Tensor, fetch: Fetch | None) -> np.ndarray:
-    """The host copy of a launched payload as numpy: the prefetched bytes
-    once their copy has completed, else a blocking inline fetch. The only
-    reader of a Fetch: its host tensor holds stale bytes until the event
-    has passed."""
-    if fetch is None:
-        return payload.cpu().numpy()
+def _resolve_one(fetch: Fetch) -> np.ndarray:
     if fetch.event is None:
         return fetch.host
     fetch.event.synchronize()
     return fetch.host.numpy()
+
+
+def submit(payload):
+    """Start the host copy of a just-launched payload (a tensor, or a
+    mesh's list of shards): a Fetch (a list of them, one a shard) for
+    resolve(), or None when prefetch is off (resolve then fetches
+    inline)."""
+    if not enabled():
+        return None
+    if isinstance(payload, list):
+        return [_submit_one(p) for p in payload]
+    return _submit_one(payload)
+
+
+def resolve(payload, fetch) -> np.ndarray:
+    """The host copy of a launched payload as numpy, the shards of a mesh
+    joined in shard order: the prefetched bytes once their copy has
+    completed, else a blocking inline fetch. The only reader of a Fetch:
+    its host tensor holds stale bytes until the event has passed."""
+    if isinstance(payload, list):
+        if fetch is None:
+            parts = [p.cpu().numpy() for p in payload]
+        else:
+            parts = [_resolve_one(f) for f in fetch]
+        return np.concatenate(parts)
+    if fetch is None:
+        return payload.cpu().numpy()
+    return _resolve_one(fetch)

@@ -1,7 +1,16 @@
 """Polisher of the port: racon's CLI contract (createPolisher -> initialize
 -> polish, src/polisher.cpp:55-548) around columnar data and the stages of
 racon_tpu_torch.backends. A copy of racon_tpu/polisher.py without its
-jax warm-up thread and its multi-host (dist) and prewarm branches.
+jax warm-up thread and its prewarm branches.
+
+Under several processes (parallel/dist.py, a group brought up by
+dist.initialize() before create_polisher) each process aligns a
+contiguous shard of the overlaps and all-gathers the breaking points,
+then polishes a contiguous shard of the windows, whose consensus goes
+to rank 0 alone: rank 0 stitches and returns the contigs, the other
+ranks return []. With the cuda backend each process's stages run on its
+own dist.local_devices() (split over them by parallel/mesh.py when it
+owns more than one).
 
 Stage map (reference -> here):
   initialize targets/reads ingest + dedup   -> SequenceStore + name/id maps
@@ -28,6 +37,7 @@ from .core.windows import (WINDOW_TYPE_NGS, WINDOW_TYPE_TGS, WindowSet,
 from .errors import RaconError
 from .io import open_overlap_parser, open_sequence_parser
 from .models.polish_model import PolisherConfig, PolisherType
+from .parallel import dist
 from .utils.logger import Logger
 
 kChunkSize = 1 << 30  # streaming parse unit (reference: src/polisher.cpp:26)
@@ -206,7 +216,9 @@ class Polisher:
     def _find_breaking_points(self, overlaps: OverlapTable
                               ) -> list[np.ndarray]:
         """Align the overlaps without a CIGAR on the configured stage;
-        SAM records that carry one are walked directly."""
+        SAM records that carry one are walked directly. Under several
+        processes each aligns a contiguous shard of them and the breaking
+        points are all-gathered."""
         stage = get_align_stage(self.config, self.device)
         self.align_stage = stage
         w = self.config.window_length
@@ -221,11 +233,19 @@ class Polisher:
                     int(overlaps.t_end[i]), w)
             else:
                 need_align.append(i)
-        if need_align:
+        if need_align and dist.is_active():
+            lo, hi = dist.shard_range(len(need_align))
+            local = stage.breaking_points(overlaps, need_align[lo:hi],
+                                          self.sequences, w, self.logger)
+            aligned = dist.allgather_ragged(local, np.int64, trailing=(4,))
+            assert len(aligned) == len(need_align)
+        elif need_align:
             aligned = stage.breaking_points(overlaps, need_align,
                                             self.sequences, w, self.logger)
-            for i, bp in zip(need_align, aligned):
-                out[i] = bp
+        else:
+            aligned = []
+        for i, bp in zip(need_align, aligned):
+            out[i] = bp
         self.logger.log("[racon::Polisher::initialize] aligned overlaps")
         return out
 
@@ -237,8 +257,27 @@ class Polisher:
         self.logger.log()
         stage = get_consensus_stage(cfg, self.device)
         self.consensus_stage = stage
-        consensus, polished = stage.consensus_windows(self.windows, cfg,
-                                                      self.logger)
+        if dist.is_active():
+            # each process polishes a contiguous window shard; the
+            # consensus bytes and flags go to rank 0 alone, which stitches
+            lo, hi = dist.shard_range(self.windows.num_windows)
+            local_c, local_p = stage.consensus_windows(
+                self.windows.shard(lo, hi), cfg, self.logger)
+            parts = dist.gather_ragged_to0(
+                [np.frombuffer(c, np.uint8) for c in local_c], np.uint8)
+            flags = dist.gather_blob_to0(np.asarray(local_p, np.uint8))
+            # no rank leaves before rank 0 holds every shard
+            dist.barrier()
+            if dist.process_index() != 0:
+                self.logger.log("[racon::Polisher::polish] generated "
+                                "consensus")
+                return []
+            consensus = [p.tobytes() for p in parts]
+            polished = [bool(f) for f in np.concatenate(flags)]
+            assert len(consensus) == self.windows.num_windows
+        else:
+            consensus, polished = stage.consensus_windows(
+                self.windows, cfg, self.logger)
         dst = stitch(consensus, polished, self.windows, self.sequences,
                      self.targets_coverages, cfg.type == PolisherType.kF,
                      drop_unpolished_sequences)

@@ -428,3 +428,98 @@ def test_to_device_uploads_from_pinned_memory(gpu):
     assert all("Pinned" in c and "Pageable" not in c for c in copies)
     for got, want in zip((g.q4, g.t4, g.dcb, g.m, g.n), (q4, t4, dcb, m, n)):
         assert np.array_equal(got.cpu().numpy(), want)
+
+
+@pytest.mark.parametrize("fmt,cap,w,B", [("rle", 640, 128, 4097),
+                                         ("rows", 640, 128, 1025),
+                                         ("packed2", 256, 128, 1023),
+                                         ("myers", 2560, 512, 1023)])
+def test_sharded_dispatch_matches_unsharded(gpu, fmt, cap, w, B):
+    """mesh.sharded_align_walk on (cuda:0, cuda:0), an odd B so the shards
+    are uneven: every item's payload and score equal the unsharded
+    launch's, each shard on its device, one launch a shard."""
+    from racon_tpu_torch.parallel import mesh
+
+    dev = torch.device("cuda", 0)
+    batch = _packed(B + cap, B, cap, w)
+    geo = dict(m_cap=cap, n_cap=cap, w_band=w)
+    sc = dict(match=5, mismatch=-4, gap=-8)
+    before = dict(LAUNCHES)
+    payloads, scores = mesh.sharded_align_walk((dev, dev), *batch, **geo,
+                                               **sc, fmt=fmt)
+    walk = "myers_walk" if fmt == "myers" else {
+        "rle": "rle_walk", "rows": "rows_walk",
+        "packed2": "packed_walk"}[fmt]
+    assert LAUNCHES[walk] == before[walk] + 2
+    assert [len(p) for p in payloads] == [(B + 1) // 2, B // 2]
+    assert all(p.device == dev for p in payloads + scores)
+    q4, t4, dcb, m, n = batch
+    g = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap, device=dev)
+    if fmt == "myers":
+        want = mk.myers_walk(mk.myers_sweep(g.q4, g.t4, **geo), g.m, g.n,
+                             **geo)
+        want_sc = torch.zeros_like(g.m)
+    else:
+        moves, want_sc = nk.nw_sweep(g.q4, g.t4, g.dcb, **geo, **sc)
+        want = {"rle": nk.rle_walk, "rows": nk.rows_walk,
+                "packed2": nk.packed_walk}[fmt](moves, g.m, g.n, **geo)
+    assert torch.equal(torch.cat(payloads), want)
+    assert torch.equal(torch.cat(scores), want_sc)
+
+
+def test_prefetch_of_sharded_payload(gpu, monkeypatch):
+    """A mesh's per-shard payloads, each prefetched on its own device's
+    stream and resolved while later chunks are queued, join into the
+    bytes of a blocking fetch."""
+    from racon_tpu_torch.ops import prefetch
+    from racon_tpu_torch.parallel import mesh
+
+    monkeypatch.delenv("RACON_TPU_FETCH_THREADS", raising=False)
+    geo = dict(m_cap=640, n_cap=640, w_band=128, match=5, mismatch=-4,
+               gap=-8)
+    mesh.set_active_mesh(["cuda:0", "cuda:0", "cuda:0"])
+    try:
+        first = None
+        for k in range(4):
+            payload, _, fmt = nk.align_walk_padded(*_packed(k, 4097, 640, 128),
+                                                   **geo, device=gpu)
+            fetch = prefetch.submit(payload)
+            assert isinstance(payload, list) and len(fetch) == 3
+            assert all(f.host.is_pinned() for f in fetch)
+            if first is None:
+                first = (payload, fetch)
+    finally:
+        mesh.clear_active_mesh()
+    got = prefetch.resolve(*first)
+    want = torch.cat(first[0]).cpu().numpy()
+    assert fmt == "rle" and np.array_equal(got, want)
+    unsharded, _, _ = nk.align_walk_padded(*_packed(0, 4097, 640, 128),
+                                           **geo, device=gpu)
+    assert np.array_equal(got, unsharded.cpu().numpy())
+
+
+def test_launch_follows_the_tensor_device(gpu):
+    """A launch on tensors of cuda:1 while the current device is 0 runs
+    on cuda:1 (device guard, that device's stream) and equals the plain
+    version; a tensor on another device than the first is refused."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from racon_tpu_torch.kernels.build import kernels
+
+    torch.cuda.set_device(0)
+    q4, t4, dcb, m, n = _packed(5, 513, 640, 128)
+    geo = dict(m_cap=640, n_cap=640, w_band=128)
+    sc = dict(match=5, mismatch=-4, gap=-8)
+    g = to_device(q4, t4, dcb, m, n, m_cap=640, n_cap=640, device="cuda:1")
+    moves, score = nk.nw_sweep(g.q4, g.t4, g.dcb, **geo, **sc)
+    payload = nk.rle_walk(moves, g.m, g.n, **geo)
+    assert torch.cuda.current_device() == 0
+    assert moves.device == payload.device == torch.device("cuda", 1)
+    c = to_device(q4, t4, dcb, m, n, m_cap=640, n_cap=640, device="cpu")
+    pm, ps = nk.nw_sweep_plain(c.q4, c.t4, c.dcb, **geo, **sc)
+    assert torch.equal(moves.cpu(), pm) and torch.equal(score.cpu(), ps)
+    assert torch.equal(payload.cpu(),
+                       nk.rle_walk_plain(pm, c.m, c.n, **geo))
+    with pytest.raises(RuntimeError, match="is on"):
+        kernels().nw_sweep(g.q4, g.t4.to("cuda:0"), g.dcb, moves, score,
+                           640, 640, 128, 5, -4, -8, 128)

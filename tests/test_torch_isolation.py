@@ -49,6 +49,9 @@ def test_no_import_of_jax_or_racon_tpu():
         files += [os.path.join(root, f) for f in names if f.endswith(".py")]
     assert len(files) > 30
     assert os.path.join(PORT, "ops", "prefetch.py") in files
+    for name in ("__init__.py", "dist.py", "mesh.py"):
+        assert os.path.join(PORT, "parallel", name) in files
+    assert os.path.join(PORT, "testing", "dist_polish.py") in files
     bad = [(os.path.relpath(f, REPO), mod) for f in files
            for mod in _imported_roots(f) if mod in ("jax", "racon_tpu")]
     assert not bad
