@@ -30,9 +30,9 @@ Phases (each must pass, or the script exits non-zero):
      versions, timed in turns with them (and K1-16's other warp layout);
   3. the consensus stage on the bench workload (testing.synth
      build_workload, 2048 windows of 500 bp, 12% error, match 5 /
-     mismatch -4 / gap -8), six times: the default RLE walk, then
-     RACON_TPU_WALK=rows twice, then the default again, then once more
-     under RACON_TPU_DP16=1, then once with RACON_TPU_COHORTS=1; edit
+     mismatch -4 / gap -8), four times: the default RLE walk, then
+     RACON_TPU_WALK=rows, then the default under RACON_TPU_DP16=1, then
+     once with RACON_TPU_COHORTS=1; edit
      distance to the truth must be exactly 91 each time, the rows runs
      must launch the rows walk and not the RLE walk, the int16 run the
      int16 sweep, and every run but the last must run 3 cohorts;
@@ -44,13 +44,12 @@ Phases (each must pass, or the script exits non-zero):
      must be >= 99.99%, and the warp sweep, RLE walk and both Myers
      kernels must have launched; then the same under RACON_TPU_DP16=1,
      whose FASTA must be byte-equal and which must launch the int16
-     sweep; then four more polishes, with RACON_TPU_COHORTS=1 and the
-     default in turns (1, default, default, 1): each one's wall times
-     and the consensus stage's split (dispatch, fetch wait, decode,
+     sweep; then once more with RACON_TPU_COHORTS=1; each run's wall
+     times and the consensus stage's split (dispatch, fetch wait, decode,
      poa_round, host_fallback), 3 cohorts by default, the FASTA
      byte-equal to the first; then initialize and polish once more, each
-     under torch.profiler, by default, with RACON_TPU_DP16=1 and with
-     RACON_TPU_COHORTS=1: device busy, the share of it inside the host's
+     under torch.profiler, by default and with RACON_TPU_DP16=1: device
+     busy, the share of it inside the host's
      decode / merge / realign spans and inside its dispatch spans, time
      per kernel, and no H2D copy
      from pageable memory; then `raconx-torch --profile <dir>` in a
@@ -64,7 +63,9 @@ Phases (each must pass, or the script exits non-zero):
      host for want of a band (wide_host_items 0), and the polished contig
      must be closer to the truth than the draft. 1 Mb, not 4.6: at 4.6 Mb
      this phase alone takes about 460 s, most of it the host realigning
-     band escapes, and the whole script then passes 10 minutes;
+     band escapes; not 0.5 either: there the contig's thinly covered ends,
+     trimmed, cost more than the polish gains (98.8446 % against the
+     draft's 99.1708 % on an NVIDIA H100 80GB HBM3);
   6. the scored align route: create_polisher -> initialize on the
      datasets of phases 4 and 5 and a 0.5 Mb one of 2 kb reads, by
      default (Myers) and under RACON_TPU_MYERS=0 RACON_TPU_WALK=rows, the
@@ -98,6 +99,25 @@ Phases (each must pass, or the script exits non-zero):
      dataset (stdout exactly the single-process CLI's FASTA). Its
      launches go under `launches_by_path` "bench_mesh2", "mesh2" and
      "dist2".
+  9. racon's other modes (after phase 7): the Myers sweep and walk at the
+     kF tier (40960,1024) at the align stage's chunk there (409 items; 8
+     spread over the launch, an escape, an all-PAD item and the last
+     checked against the plain versions, with CUDA-event times and the
+     share of each bound); fragment correction (racon -f) through
+     racon_tpu_torch.benchmarks.genome_scale --mode kf on
+     make_dataset(KF_GENOME_MB, 20x 30 kb reads, 12% error, ava=True),
+     --backend cuda, then --backend native on the same data (K3, K4, K1
+     and J1 launched; no overlap above the kF tier or on the host for want
+     of a tier; corrected identity >= raw + 5 points and no more than
+     0.05 below native's); on make_cigar_dataset (50 kb, 20x 2 kb reads,
+     12% error) SAM overlaps with CIGARs (K1 and J1, no Myers kernel, no
+     item to the align stage) and FASTQ reads with MHAP overlaps under -q
+     10 (K3, K4, K1, J1), each polished on the card and on the plain
+     versions (device="cpu"), FASTA byte-equal and closer to the truth
+     than the draft; then `raconx-torch-tools wrapper --split` on a
+     0.2 Mb make_dataset cut into two targets: its stdout equal to the
+     CLI's FASTA on each split, its work directory removed. Its launches
+     go under "kf", "sam", "mhap_fastq" and "wrapper".
 Prints one JSON line of per-kernel results (the contract's keys, then
 every shape phase 2 measured under `shapes` and each run's launches
 under `launches_by_path`), the card's name and power limit, then the
@@ -448,19 +468,98 @@ def _decode_ms(fmt, payload, cap, W, m, n, threads):
     return 1e3 * best
 
 
-def phase_kernels(results, threads):
-    """Phase 2: each kernel vs its plain version at main-path shapes."""
+def record_shape(results, name, cap, W, B, scores, **numbers):
+    """One measured shape of a kernel; the first of each kernel also fills
+    its contract keys."""
+    results[name]["shapes"].append(dict(shape=[cap, W, B], scores=scores,
+                                        **numbers))
+    if results[name]["ms"] is None:
+        results[name].update(numbers)
+
+
+def myers_shape(results, cap, W, B, rng, sample, tag="", main=False):
+    """Both Myers kernels at one shape; every item (sample None) or
+    `sample` items spread over the launch, with item 3 (out of the
+    band), item 6 (all PAD) and the last, against the plain
+    versions, every word of their planes. `main`: the main path's
+    shape, whose numbers fill the contract keys."""
     import numpy as np
     import torch
 
     from racon_tpu_torch.ops import myers_kernel as mk
+    from racon_tpu_torch.ops.batch import to_device
+    from racon_tpu_torch.ops.geometry import (myers_sweep_launch,
+                                              myers_walk_launch)
+
+    geo = dict(m_cap=cap, n_cap=cap, w_band=W)
+    q4, t4, _, m, n = make_items(rng, B, cap, W, -1)
+    gpu = to_device(q4, t4, None, m, n, m_cap=cap, n_cap=cap,
+                    device="cuda")
+    idx = np.arange(B) if sample is None else np.unique(np.r_[
+        np.linspace(0, B - 1, sample).astype(int), 3, 6, B - 1])
+    cpu = to_device(q4[idx], t4[idx], None, m[idx], n[idx], m_cap=cap,
+                    n_cap=cap, device="cpu")
+    sel = torch.from_numpy(idx).cuda()
+    planes = mk.myers_sweep(gpu.q4, gpu.t4, **geo)
+    payload = mk.myers_walk(planes, gpu.m, gpu.n, **geo)
+    pl, sweep_plain = host_ms(lambda: mk.myers_sweep_plain(
+        cpu.q4, cpu.t4, **geo))
+    pp, walk_plain = host_ms(lambda: mk.myers_walk_plain(
+        pl, cpu.m, cpu.n, **geo))
+    err = compare("myers_sweep planes", planes[sel], pl)
+    werr = compare("myers_walk payload", payload[sel], pp)
+    sweep = cuda_ms(lambda: mk.myers_sweep(gpu.q4, gpu.t4, **geo))
+    wms = cuda_ms(lambda: mk.myers_walk(planes, gpu.m, gpu.n, **geo))
+    esc = int(payload[:, -1].sum())
+    which = ("" if sample is None else
+             f" (items {','.join(map(str, idx))} checked)")
+    nbytes = B * (cap // 2 + cap // 2) + B * cap * 2 * (W // 32) * 4
+    bs, bys = bound(nbytes, B * cap * (W // 32) * OPS_MYERS_WORD)
+    log(f"[kernels] myers ({cap},{W}) B={B}{tag}: byte-equal{which}, "
+        f"{esc} escapes; sweep {sweep:.3f} ms = {1e3 * sweep / B:.3f} "
+        f"us an item, {100 * bs / sweep:.1f} % of its bound {bs:.3f} ms "
+        f"by {bys} ({myers_sweep_launch(B, cap, W)[0]} blocks; plain "
+        f"CPU {sweep_plain:.1f} ms), walk {wms:.3f} ms (plain CPU "
+        f"{walk_plain:.1f} ms)")
+    # the walk needs two plane words per query row it passes; reading
+    # whole rows (2 W/32 words each) moves the planes once
+    rows = int(np.asarray(m).sum())
+    bw, byw = bound(8 * rows + B * (8 + cap + 2), rows * OPS_WALK_STEP)
+    rows_ms = 1e3 * (rows * 2 * (W // 32) * 4) / HBM_BYTES_PER_S
+    log(f"[kernels] myers_walk ({cap},{W}) B={B}: "
+        f"{myers_walk_launch(B, W)[0]} blocks; bound {bw:.5f} ms by "
+        f"{byw}, {100 * bw / wms:.2f} % of it; whole rows of both planes "
+        f"{rows_ms:.3f} ms of HBM")
+    for name, numbers in (
+            ("myers_sweep", dict(max_abs_err=err, ms=sweep,
+                                 plain_ms=sweep_plain, bound_ms=bs,
+                                 bound_by=bys)),
+            ("myers_walk", dict(max_abs_err=werr, ms=wms,
+                                plain_ms=walk_plain, bound_ms=bw,
+                                bound_by=byw))):
+        if sample is not None:
+            numbers["plain_items"] = idx.tolist()
+        record_shape(results, name, cap, W, B, "align", **numbers)
+        if main:
+            results[name].update(numbers)
+    results["myers_sweep"]["shapes"][-1].update(
+        us_per_item=1e3 * sweep / B, bound_share=bs / sweep,
+        blocks=myers_sweep_launch(B, cap, W)[0])
+    results["myers_walk"]["shapes"][-1].update(
+        bound_share=bw / wms, whole_rows_ms=rows_ms,
+        blocks=myers_walk_launch(B, W)[0])
+
+
+def phase_kernels(results, threads):
+    """Phase 2: each kernel vs its plain version at main-path shapes."""
+    import numpy as np
+
     from racon_tpu_torch.ops import nw_kernel as nk
     from racon_tpu_torch.native import loader
     from racon_tpu_torch.ops.align_stage import _chunk_size
     from racon_tpu_torch.ops.batch import to_device
     from racon_tpu_torch.ops.consensus_stage import chunk_size
-    from racon_tpu_torch.ops.geometry import (myers_sweep_launch,
-                                              myers_walk_launch, sweep_kernel)
+    from racon_tpu_torch.ops.geometry import sweep_kernel
 
     t0 = time.perf_counter()
     if loader.get() is None:
@@ -476,13 +575,8 @@ def phase_kernels(results, threads):
                          nk.packed_walk_plain)}
 
     def shape(name, cap, W, B, sc, **numbers):
-        """One measured shape; the first of each kernel also fills its
-        contract keys."""
-        results[name]["shapes"].append(dict(
-            shape=[cap, W, B], scores="align" if sc is align else "consensus",
-            **numbers))
-        if results[name]["ms"] is None:
-            results[name].update(numbers)
+        record_shape(results, name, cap, W, B,
+                     "align" if sc is align else "consensus", **numbers)
 
     def scored(cap, W, B, drift, fmts, rng, sc):
         """Sweep and walks at one shape against their plain versions, with
@@ -586,76 +680,15 @@ def phase_kernels(results, threads):
     scored(10240, 2048, 16, 700, ("packed2",), rng, consensus)
     chunk(10240, 2048, 700, rng, False)
 
-    def myers(cap, W, B, rng, sample, tag="", main=False):
-        """Both Myers kernels at one shape; every item (sample None) or
-        `sample` items spread over the launch, with item 3 (out of the
-        band), item 6 (all PAD) and the last, against the plain
-        versions, every word of their planes. `main`: the main path's
-        shape, whose numbers fill the contract keys."""
-        geo = dict(m_cap=cap, n_cap=cap, w_band=W)
-        q4, t4, _, m, n = make_items(rng, B, cap, W, -1)
-        gpu = to_device(q4, t4, None, m, n, m_cap=cap, n_cap=cap,
-                        device="cuda")
-        idx = np.arange(B) if sample is None else np.unique(np.r_[
-            np.linspace(0, B - 1, sample).astype(int), 3, 6, B - 1])
-        cpu = to_device(q4[idx], t4[idx], None, m[idx], n[idx], m_cap=cap,
-                        n_cap=cap, device="cpu")
-        sel = torch.from_numpy(idx).cuda()
-        planes = mk.myers_sweep(gpu.q4, gpu.t4, **geo)
-        payload = mk.myers_walk(planes, gpu.m, gpu.n, **geo)
-        pl, sweep_plain = host_ms(lambda: mk.myers_sweep_plain(
-            cpu.q4, cpu.t4, **geo))
-        pp, walk_plain = host_ms(lambda: mk.myers_walk_plain(
-            pl, cpu.m, cpu.n, **geo))
-        err = compare("myers_sweep planes", planes[sel], pl)
-        werr = compare("myers_walk payload", payload[sel], pp)
-        sweep = cuda_ms(lambda: mk.myers_sweep(gpu.q4, gpu.t4, **geo))
-        wms = cuda_ms(lambda: mk.myers_walk(planes, gpu.m, gpu.n, **geo))
-        esc = int(payload[:, -1].sum())
-        which = ("" if sample is None else
-                 f" (items {','.join(map(str, idx))} checked)")
-        nbytes = B * (cap // 2 + cap // 2) + B * cap * 2 * (W // 32) * 4
-        bs, bys = bound(nbytes, B * cap * (W // 32) * OPS_MYERS_WORD)
-        log(f"[kernels] myers ({cap},{W}) B={B}{tag}: byte-equal{which}, "
-            f"{esc} escapes; sweep {sweep:.3f} ms = {1e3 * sweep / B:.3f} "
-            f"us an item, {100 * bs / sweep:.1f} % of its bound {bs:.3f} ms "
-            f"by {bys} ({myers_sweep_launch(B, cap, W)[0]} blocks; plain "
-            f"CPU {sweep_plain:.1f} ms), walk {wms:.3f} ms (plain CPU "
-            f"{walk_plain:.1f} ms)")
-        # the walk needs two plane words per query row it passes; reading
-        # whole rows (2 W/32 words each) moves the planes once
-        rows = int(np.asarray(m).sum())
-        bw, byw = bound(8 * rows + B * (8 + cap + 2), rows * OPS_WALK_STEP)
-        rows_ms = 1e3 * (rows * 2 * (W // 32) * 4) / HBM_BYTES_PER_S
-        log(f"[kernels] myers_walk ({cap},{W}) B={B}: "
-            f"{myers_walk_launch(B, W)[0]} blocks; bound {bw:.5f} ms by "
-            f"{byw}; whole rows of both planes {rows_ms:.3f} ms of HBM")
-        for name, numbers in (
-                ("myers_sweep", dict(max_abs_err=err, ms=sweep,
-                                     plain_ms=sweep_plain, bound_ms=bs,
-                                     bound_by=bys)),
-                ("myers_walk", dict(max_abs_err=werr, ms=wms,
-                                    plain_ms=walk_plain, bound_ms=bw,
-                                    bound_by=byw))):
-            if sample is not None:
-                numbers["plain_items"] = idx.tolist()
-            shape(name, cap, W, B, align, **numbers)
-            if main:
-                results[name].update(numbers)
-        results["myers_sweep"]["shapes"][-1].update(
-            us_per_item=1e3 * sweep / B, bound_share=bs / sweep,
-            blocks=myers_sweep_launch(B, cap, W)[0])
-        results["myers_walk"]["shapes"][-1].update(
-            whole_rows_ms=rows_ms, blocks=myers_walk_launch(B, W)[0])
-
-    myers(2560, 512, 1024, rng, None)
-    myers(10240, 1024, 8, rng, None)
+    myers_shape(results, 2560, 512, 1024, rng, None)
+    myers_shape(results, 10240, 1024, 8, rng, None)
     # at its main tier the align stage's chunk was 409 items (29 launches
     # per initialize() at 4.6 Mb) until its planes budget replaced the
     # move budget; its chunk now is _chunk_size's (12 launches of ~959)
-    myers(10240, 1024, 409, rng, 8, " (the former align chunk)")
-    myers(10240, 1024, _chunk_size(10240, 1024, True), rng, 8,
-          " (the align chunk)", main=True)
+    myers_shape(results, 10240, 1024, 409, rng, 8,
+                " (the former align chunk)")
+    myers_shape(results, 10240, 1024, _chunk_size(10240, 1024, True), rng,
+                8, " (the align chunk)", main=True)
     # the align stage's scored route (RACON_TPU_MYERS=0) at a W <= 1024
     # tier and at W = 4096, on its own seed so that the shapes above keep
     # their inputs
@@ -753,7 +786,7 @@ def phase_kernels16(results):
 
 def phase_bench(threads, results):
     """Phase 3: consensus stage on the bench workload, with the RLE walk
-    (the default) and the rows walk (RACON_TPU_WALK=rows) in turns, at the
+    (the default), then the rows walk (RACON_TPU_WALK=rows), at the
     default cohort count (3), then once in int16 and once in one cohort
     (RACON_TPU_COHORTS=1)."""
     from racon_tpu_torch.kernels import LAUNCHES, reset_launches
@@ -770,7 +803,6 @@ def phase_bench(threads, results):
     try:
         for run, (walk, int16, cohorts) in enumerate((
                 ("rle", False, None), ("rows", False, None),
-                ("rows", False, None), ("rle", False, None),
                 ("rle", True, None), ("rle", False, "1"))):
             if walk == "rows":
                 os.environ["RACON_TPU_WALK"] = "rows"
@@ -1009,10 +1041,10 @@ def phase_polish(wd, genome_mb, threads, results, state):
     state.update(out=out, counts=counts, times=p.wall_times,
                  items=p.align_stage.stats["items"],
                  windows=p.windows.num_windows)
+    if _stage_split("polish", p, out) != 3:
+        raise SmokeFailure("the default polish did not run 3 cohorts")
     record_launches(results, "polish_w500", counts)
     ident = _identity("polish", "polished", out[0][1], true)
-    log(f"[polish] polished contig sha256 "
-        f"{hashlib.sha256(out[0][1]).hexdigest()}")
     if ident < 99.99:
         raise SmokeFailure(f"identity {ident:.4f}% < 99.99%")
     missing = [k for k in MAIN_KERNELS if counts[k] == 0]
@@ -1036,12 +1068,11 @@ def phase_polish(wd, genome_mb, threads, results, state):
         f"run's (identity {ident:.4f}%); nw_sweep16 {counts16['nw_sweep16']}"
         f" launches, nw_sweep {counts16['nw_sweep']} (tiers above the int16 "
         f"gate)")
-    _overlap_turns(wd, threads, out)
+    _one_cohort(wd, threads, out)
     sweeps = {}
     argv = [*POLISH_ARGV, "-t", str(threads)]
-    for tag, on, cohorts in (("int32", False, None), ("dp16", True, None),
-                             ("cohorts1", False, "1")):
-        with dp16(on), setenv("RACON_TPU_COHORTS", cohorts):
+    for tag, on in (("int32", False), ("dp16", True)):
+        with dp16(on):
             pr = _profile_polish(wd, argv, tag)
         sweeps[tag] = {k: v for k, v in pr["by_name"].items()
                        if k.startswith("nw_sweep")}
@@ -1054,26 +1085,30 @@ def phase_polish(wd, genome_mb, threads, results, state):
     state["cli50"] = _profile_cli()
 
 
-def _overlap_turns(wd, threads, out):
-    """Phase 4's polish with RACON_TPU_COHORTS=1 and with the default
-    cohort count in turns (1, default, default, 1): each run's times and
-    the consensus stage's split; the default must run 3 cohorts, and
-    every FASTA must equal the first polish's."""
-    for cohorts in ("1", None, None, "1"):
-        tag = f"cohorts {cohorts or 'default'}"
-        with setenv("RACON_TPU_COHORTS", cohorts):
-            p, got, _ = _polish_cli(tag, wd, [*POLISH_ARGV, "-t",
-                                              str(threads)])
-        c = p.consensus_stage
-        split = {k: round(c.prof[k + "_s"], 3) for k in (
-            "dispatch", "fetch", "decode", "poa_round", "host_fallback")}
-        log(f"[{tag}] the consensus stage ran {c.n_cohorts} cohorts; its "
-            f"split (s) {split}; FASTA sha256 "
-            f"{hashlib.sha256(got[0][1]).hexdigest()}")
-        if c.n_cohorts != (3 if cohorts is None else 1):
-            raise SmokeFailure(f"{tag}: {c.n_cohorts} cohorts")
-        if got != out:
-            raise SmokeFailure(f"{tag}: the FASTA differs from phase 4's")
+def _stage_split(tag, p, out):
+    """Log the consensus stage's cohort count and split (s) of polisher
+    `p`, and its FASTA's sha256; returns the cohort count."""
+    c = p.consensus_stage
+    split = {k: round(c.prof[k + "_s"], 3) for k in (
+        "dispatch", "fetch", "decode", "poa_round", "host_fallback")}
+    log(f"[{tag}] the consensus stage ran {c.n_cohorts} cohorts; its "
+        f"split (s) {split}; FASTA sha256 "
+        f"{hashlib.sha256(out[0][1]).hexdigest()}")
+    return c.n_cohorts
+
+
+def _one_cohort(wd, threads, out):
+    """Phase 4's polish once more with RACON_TPU_COHORTS=1 (the first
+    polish ran the default count, 3; which is faster is the benchmark's
+    question): its times and the consensus stage's split, and its FASTA
+    must equal the first polish's."""
+    with setenv("RACON_TPU_COHORTS", "1"):
+        p, got, _ = _polish_cli("cohorts 1", wd, [*POLISH_ARGV, "-t",
+                                                  str(threads)])
+    if _stage_split("cohorts 1", p, got) != 1:
+        raise SmokeFailure("RACON_TPU_COHORTS=1 ran more than one cohort")
+    if got != out:
+        raise SmokeFailure("cohorts 1: the FASTA differs from phase 4's")
 
 
 def cli50(wd):
@@ -1667,6 +1702,231 @@ def phase_ablate(results):
         f"line's")
 
 
+# phase 9's kF dataset: genome (Mb) and read length, 20x coverage. At
+# 0.2 Mb the cuda and native runs took 116 s together (NVIDIA H100 80GB
+# HBM3 and its 8 host cores, the native run 100 s of it), above the 60 s
+# they may take
+KF_GENOME_MB = 0.1
+KF_READ_LEN = 30000
+# the Myers kernels' kF tier: all-vs-all overlaps of 30 kb reads
+KF_TIER = (40960, 1024)
+
+
+def phase_modes(wd, threads, results):
+    """Phase 9: racon's other modes on the card. K3 and K4 at the kF tier;
+    kF through the port's genome_scale against the native backend; SAM
+    with CIGARs and FASTQ with MHAP against the plain versions; the
+    companion tools' wrapper against the CLI."""
+    import numpy as np
+
+    from racon_tpu_torch.ops.align_stage import _chunk_size
+
+    cap, band = KF_TIER
+    myers_shape(results, cap, band, _chunk_size(cap, band, True),
+                np.random.default_rng(cap), 8, " (the kF tier's align chunk)")
+    _modes_kf(os.path.join(wd, "kf"), threads, results)
+    _modes_formats(os.path.join(wd, "formats"), threads, results)
+    _modes_wrapper(os.path.join(wd, "wrapper"), threads, results)
+
+
+def _modes_kf(wd, threads, results):
+    """Fragment correction (racon -f) of make_dataset(KF_GENOME_MB, 20x
+    30 kb reads, 12 % error, ava=True) through the port's genome_scale kf
+    path, with --backend cuda, then native on the same data: the cuda run
+    must launch K3, K4, K1 and J1, align every overlap at the kF tier or
+    below and none on the host for want of a tier, and correct the reads
+    by >= 5 identity points and to within 0.05 of native's identity."""
+    from racon_tpu_torch.benchmarks import genome_scale
+    from racon_tpu_torch.kernels import LAUNCHES, reset_launches
+
+    recs = {}
+    t_all = time.perf_counter()
+    for backend in ("cuda", "native"):
+        a = genome_scale.parser().parse_args([
+            "--mode", "kf", "--genome-mb", str(KF_GENOME_MB), "--read-len",
+            str(KF_READ_LEN), "--backend", backend, "--threads", str(threads),
+            "--workdir", wd, *(["--reuse-data"] if backend == "native"
+                               else [])])
+        reset_launches()
+        rec = genome_scale.run(a)
+        counts = dict(LAUNCHES)
+        recs[backend] = rec
+        log(f"[kf] --backend {backend}: initialize {rec['initialize_s']:.3f} "
+            f"s, polish {rec['polish_s']:.3f} s, {rec['windows']} windows, "
+            f"{rec['reads_corrected']} reads corrected; identity "
+            f"{rec['identity_pct']:.4f}% (raw "
+            f"{rec['raw_read_identity_pct']:.4f}%); launches {counts}")
+        if backend == "cuda":
+            record_launches(results, "kf", counts)
+            missing = [k for k in MAIN_KERNELS if not counts[k]]
+            if missing:
+                raise SmokeFailure(f"kF never launched {missing}")
+            tiers = rec["align_tier_items"]
+            log(f"[kf] align stage: {rec['align_items']} overlaps, per tier "
+                f"{tiers}, {rec['align_host_items']} on the host (band "
+                f"escapes); peak device memory "
+                f"{rec['peak_device_bytes'] / 2**30:.3f} GiB")
+            wide = [t for t in tiers if t["tier"] is None
+                    or t["tier"][0] > KF_TIER[0] or t["tier"][1] > KF_TIER[1]]
+            if wide:
+                raise SmokeFailure(f"kF overlaps above the {KF_TIER} tier: "
+                                   f"{wide}")
+    dt = time.perf_counter() - t_all
+    cuda, native = recs["cuda"], recs["native"]
+    log(f"[kf] both runs {dt:.1f} s with the dataset; identity cuda "
+        f"{cuda['identity_pct']:.4f}%, native {native['identity_pct']:.4f}%, "
+        f"raw {cuda['raw_read_identity_pct']:.4f}%")
+    if cuda["identity_pct"] < cuda["raw_read_identity_pct"] + 5:
+        raise SmokeFailure("kF corrected the reads by less than 5 points")
+    if cuda["identity_pct"] < native["identity_pct"] - 0.05:
+        raise SmokeFailure("kF on the card is more than 0.05 points below "
+                           "native's identity")
+
+
+def _modes_formats(wd, threads, results):
+    """make_cigar_dataset(50 kb, 20x 2 kb reads, 12 % error): SAM with
+    CIGARs (breaking points from the CIGARs: K1 and J1, no Myers kernel,
+    no item to the align stage) and FASTQ reads with MHAP overlaps under
+    -q 10 (K3, K4, K1 and J1), each polished on the card and with the
+    plain versions (device="cpu"): the FASTA byte-equal, and closer to
+    the truth than the draft."""
+    from racon_tpu_torch import cli
+    from racon_tpu_torch.kernels import LAUNCHES, reset_launches
+    from racon_tpu_torch.polisher import create_polisher
+    from racon_tpu_torch.testing.synth import make_cigar_dataset
+
+    os.makedirs(wd)
+    true = make_cigar_dataset(wd, 50_000, 2000, 20, 0.12)
+    with open(os.path.join(wd, "draft.fasta"), "rb") as f:
+        draft = f.read().split(b"\n")[1]
+    for tag, files, extra, want in (
+            ("sam", ("reads.fasta", "ovl.sam"), [],
+             ("nw_sweep", "rle_walk")),
+            ("mhap_fastq", ("reads.fastq", "ovl.mhap"), ["-q", "10"],
+             MAIN_KERNELS)):
+        args = cli.parser().parse_args([
+            *POLISH_ARGV, "-t", str(threads), *extra,
+            *(os.path.join(wd, f) for f in (*files, "draft.fasta"))])
+        cfg = cli.make_config(args)
+        outs, times = {}, {}
+        for device in (None, "cpu"):
+            reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stderr(io.StringIO()):
+                p = create_polisher(*args.inputs, cfg, device=device)
+                p.initialize()
+                outs[device] = p.polish(True)
+            times[device] = time.perf_counter() - t0
+            if device is None:
+                counts, stats = dict(LAUNCHES), p.align_stage.stats
+        record_launches(results, tag, counts)
+        log(f"[{tag}] on the card {times[None]:.3f} s, plain versions "
+            f"{times['cpu']:.3f} s; align stage {stats['items']} items "
+            f"({stats['host_items']} on the host); launches {counts}")
+        if outs[None] != outs["cpu"] or len(outs[None]) != 1:
+            raise SmokeFailure(f"{tag}: the card's FASTA differs from the "
+                               "plain versions'")
+        missing = [k for k in want if not counts[k]]
+        if missing or (tag == "sam" and (
+                stats["items"] or counts["myers_sweep"]
+                or counts["myers_walk"])):
+            raise SmokeFailure(f"{tag}: launches {counts}, align stage "
+                               f"{stats['items']} items")
+        before = _identity(tag, "draft", draft, true)
+        after = _identity(tag, "polished", outs[None][0][1], true)
+        if not after > before:
+            raise SmokeFailure(f"{tag}: polished identity {after:.4f}% does "
+                               f"not beat the draft's {before:.4f}%")
+
+
+def _stdout_of(fn):
+    """(fn()'s return value, the bytes it wrote to sys.stdout.buffer);
+    its stderr is dropped."""
+    buf = io.BytesIO()
+    text = io.TextIOWrapper(buf, write_through=True)
+    with contextlib.redirect_stdout(text), \
+            contextlib.redirect_stderr(io.StringIO()):
+        try:
+            rc = fn()
+        except SystemExit as e:
+            rc = e.code
+    text.flush()
+    return rc, buf.getvalue()
+
+
+def _modes_wrapper(wd, threads, results):
+    """`raconx-torch-tools wrapper --split` on the card, on make_dataset
+    (0.2 Mb, 20x 8 kb reads, 12 % error, seed 11) with its contig cut in
+    two targets (the overlaps across the cut dropped): two splits, the
+    stdout equal to the CLI's FASTA on each split in turn, and the work
+    directory removed."""
+    from racon_tpu_torch import cli
+    from racon_tpu_torch.kernels import LAUNCHES, reset_launches
+    from racon_tpu_torch.testing.synth import make_dataset
+    from racon_tpu_torch.tools import cli as tools_cli
+    from racon_tpu_torch.tools import rampler
+
+    os.makedirs(wd)
+    make_dataset(wd, 200_000, 8000, 20, 0.12, seed=11)
+    with open(os.path.join(wd, "draft.fasta"), "rb") as f:
+        draft = f.read().split(b"\n")[1]
+    h = len(draft) // 2
+    lines = []
+    with open(os.path.join(wd, "ovl.paf"), "rb") as f:
+        for line in f:
+            c = line.rstrip(b"\n").split(b"\t")
+            s, e = int(c[7]), int(c[8])
+            if e <= h:
+                c[5:9] = [b"ctg_a", b"%d" % h, c[7], c[8]]
+            elif s >= h:
+                c[5:9] = [b"ctg_b", b"%d" % (len(draft) - h), b"%d" % (s - h),
+                          b"%d" % (e - h)]
+            else:
+                continue
+            lines.append(b"\t".join(c) + b"\n")
+    with open(os.path.join(wd, "two.paf"), "wb") as f:
+        f.write(b"".join(lines))
+    with open(os.path.join(wd, "two.fasta"), "wb") as f:
+        f.write(b">ctg_a\n%s\n>ctg_b\n%s\n" % (draft[:h], draft[h:]))
+    inputs = [os.path.join(wd, f) for f in ("reads.fasta", "two.paf",
+                                            "two.fasta")]
+    cwd = os.getcwd()
+    os.chdir(wd)  # the wrapper's work directory goes there
+    try:
+        reset_launches()
+        t0 = time.perf_counter()
+        rc, got = _stdout_of(lambda: tools_cli.main([
+            "wrapper", "--split", str(h), "--backend", "cuda", "-t",
+            str(threads), *inputs]))
+        dt = time.perf_counter() - t0
+        counts = dict(LAUNCHES)
+        left = [d for d in os.listdir(wd)
+                if d.startswith("racon_work_directory_")]
+    finally:
+        os.chdir(cwd)
+    record_launches(results, "wrapper", counts)
+    splitdir = os.path.join(wd, "splits")
+    os.makedirs(splitdir)
+    want = []
+    for part in rampler.split(inputs[2], h, splitdir):
+        rc_cli, out = _stdout_of(lambda: cli.main([
+            *POLISH_ARGV, "-t", str(threads), *inputs[:2], part]))
+        if rc_cli:
+            raise SmokeFailure(f"raconx-torch on {part} exited {rc_cli}")
+        want.append(out)
+    log(f"[wrapper] --split {h} on two targets ({len(lines)} overlaps): "
+        f"exit {rc}, {dt:.3f} s, {len(got)} bytes on stdout, "
+        f"{len(want)} splits; launches {counts}")
+    if rc or left:
+        raise SmokeFailure(f"wrapper exited {rc}, work directories {left}")
+    if len(want) != 2 or got != b"".join(want):
+        raise SmokeFailure("the wrapper's stdout is not the CLI's FASTA on "
+                           "each split")
+    missing = [k for k in MAIN_KERNELS if not counts[k]]
+    if missing:
+        raise SmokeFailure(f"the wrapper never launched {missing}")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--genome-mb", type=float, default=4.6,
@@ -1719,7 +1979,8 @@ def main() -> int:
     try:
         with tempfile.TemporaryDirectory() as wd4, \
                 tempfile.TemporaryDirectory() as wd5, \
-                tempfile.TemporaryDirectory() as wd6:
+                tempfile.TemporaryDirectory() as wd6, \
+                tempfile.TemporaryDirectory() as wd9:
             for phase in (lambda: phase_kernels(results, threads),
                           lambda: phase_kernels16(results),
                           lambda: phase_bench(threads, results),
@@ -1733,7 +1994,8 @@ def main() -> int:
                                ("w500_2kb", short_reads(wd6), POLISH_ARGV),
                                ("w10000", wd5, WIDE_ARGV)], threads,
                               results),
-                          lambda: phase_ablate(results)):
+                          lambda: phase_ablate(results),
+                          lambda: phase_modes(wd9, threads, results)):
                 phase()
                 log(f"[time] {time.perf_counter() - t0:.1f} s since the "
                     "build")

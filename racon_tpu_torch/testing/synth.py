@@ -6,6 +6,11 @@ racon_tpu. Same seeds, same bytes.
   depth 20, 12 % read error), as a WindowSet plus the true sequence;
 - make_dataset: benchmarks/genome_scale.py's ONT-like dataset (genome,
   draft with ~1 % errors, reads and PAF overlaps written to a directory).
+
+and one of the port's own, for racon's other input formats:
+
+- make_cigar_dataset: a contig and reads of its truth with known edits,
+  as FASTA and FASTQ reads and PAF, MHAP and SAM (with CIGARs) overlaps.
 """
 
 import os
@@ -238,4 +243,88 @@ def make_dataset(workdir, genome_bp, read_len, coverage, err, seed=11,
                 np.stack([keep[map_spans[:, 0]],
                           keep[np.minimum(map_spans[:, 1] - 1,
                                           dlen - 1)] + 1], axis=1))
+    return true
+
+
+def _edited(rng, seg, err):
+    """seg with a substitution, an insertion (before the base) or a
+    deletion at err/3 each per base, never at its two ends; returns (read,
+    CIGAR of the read against seg)."""
+    u = rng.random(len(seg))
+    u[[0, -1]] = 1.0
+    dele = u < err / 3
+    ins = (u >= err / 3) & (u < 2 * err / 3)
+    base = seg.copy()
+    sub = (u >= 2 * err / 3) & (u < err)
+    base[sub] = ACGT[rng.integers(0, 4, int(sub.sum()))]
+    # per base: "D"; or "I" then "M"; or "M"
+    n_ops = 1 + ins
+    first = np.zeros(len(seg) + 1, np.int64)
+    np.cumsum(n_ops, out=first[1:])
+    ops = np.full(int(first[-1]), ord("M"), np.uint8)
+    ops[first[:-1][dele]] = ord("D")
+    ops[first[:-1][ins]] = ord("I")
+    out = np.empty(len(ops), np.uint8)
+    out[ops == ord("I")] = ACGT[rng.integers(0, 4, int(ins.sum()))]
+    out[first[1:] - 1] = base
+    read = out[ops != ord("D")]
+    cuts = np.flatnonzero(np.r_[True, ops[1:] != ops[:-1], True])
+    cigar = b"".join(b"%d%c" % (b - a, ops[a])
+                     for a, b in zip(cuts[:-1], cuts[1:]))
+    return read, cigar
+
+
+def make_cigar_dataset(workdir, genome_bp, read_len, coverage, err,
+                       seed=7):
+    """A contig and reads of its truth with known edits, for racon's other
+    input formats. Writes into `workdir`: true.fasta; draft.fasta (the
+    truth with a substitution every 75 bases on average, no indels, so
+    the truth's coordinates are the draft's); the reads (`coverage` x
+    genome_bp / read_len of them, read_len bases of the truth each at
+    `err`, every 3rd stored reverse-complemented, every 4th forward one
+    behind a 7 bp soft clip) as reads.fasta and as reads.fastq (quality
+    40, and 2 over the first half of every 5th read, so -q 10 drops its
+    layers there); and each read's overlap with the draft as ovl.paf,
+    ovl.mhap (no CIGAR) and ovl.sam (the CIGAR of its known edits).
+    Returns the truth."""
+    rng = np.random.default_rng(seed)
+    true = rng.choice(ACGT, genome_bp)
+    draft = true.copy()
+    subs = rng.choice(genome_bp, genome_bp // 75, replace=False)
+    draft[subs] = ACGT[rng.integers(0, 4, len(subs))]
+    fasta, fastq, paf, mhap = [], [], [], []
+    sam = [b"@HD\tVN:1.6\n@SQ\tSN:ctg\tLN:%d\n" % genome_bp]
+    rc = bytes.maketrans(b"ACGT", b"TGCA")
+    for r in range(genome_bp * coverage // read_len):
+        s = int(rng.integers(0, genome_bp - read_len + 1))
+        e = s + read_len
+        read, cigar = _edited(rng, true[s:e], err)
+        rev = r % 3 == 1
+        clip = 0 if rev or r % 4 != 2 else 7
+        if clip:
+            read = np.concatenate([rng.choice(ACGT, clip), read])
+            cigar = b"%dS" % clip + cigar
+        data = read.tobytes()[::-1].translate(rc) if rev else read.tobytes()
+        n = len(data)
+        qual = bytearray(b"I" * n)
+        if r % 5 == 0:
+            qual[: n // 2] = b"#" * (n // 2)
+        name = b"read%d" % r
+        fasta.append(b">%s\n%s\n" % (name, data))
+        fastq.append(b"@%s\n%s\n+\n%s\n" % (name, data, bytes(qual)))
+        paf.append(b"%s\t%d\t%d\t%d\t%c\tctg\t%d\t%d\t%d\t9\t9\t60\n"
+                   % (name, n, clip, n, b"-+"[not rev], genome_bp, s, e))
+        mhap.append(b"%d 1 0.1 9 %d %d %d %d 0 %d %d %d\n"
+                    % (r + 1, rev, clip, n, n, s, e, genome_bp))
+        sam.append(b"%s\t%d\tctg\t%d\t60\t%s\t*\t0\t0\t*\t*\n"
+                   % (name, 16 if rev else 0, s + 1, cigar))
+    for name, parts in (("reads.fasta", fasta), ("reads.fastq", fastq),
+                        ("ovl.paf", paf), ("ovl.mhap", mhap),
+                        ("ovl.sam", sam)):
+        with open(os.path.join(workdir, name), "wb") as f:
+            f.write(b"".join(parts))
+    for name, seq in (("true.fasta", true), ("draft.fasta", draft)):
+        with open(os.path.join(workdir, name), "wb") as f:
+            f.write(b">%s\n%s\n" % (b"true" if name[0] == "t" else b"ctg",
+                                    seq.tobytes()))
     return true

@@ -2,8 +2,9 @@
 
 - no module of the port and no line of chip_smoke.py imports jax or
   racon_tpu (an ast scan);
-- with both made unimportable, every module of the port imports and the
-  port polishes a synthetic case (device="cpu");
+- with both made unimportable, every module of the port imports, the
+  port polishes a synthetic case (device="cpu"), and the wrapper of its
+  companion tools polishes the quick synthetic case;
 - the port's copy of the native runtime agrees with racon_tpu's;
 - without a GPU, "auto" (the default) raises like "cuda": the port never
   falls back to the host by itself.
@@ -52,6 +53,10 @@ def test_no_import_of_jax_or_racon_tpu():
     for name in ("__init__.py", "dist.py", "mesh.py"):
         assert os.path.join(PORT, "parallel", name) in files
     assert os.path.join(PORT, "testing", "dist_polish.py") in files
+    for name in ("__init__.py", "cli.py", "preprocess.py", "rampler.py",
+                 "wrapper.py"):
+        assert os.path.join(PORT, "tools", name) in files
+    assert os.path.join(PORT, "benchmarks", "genome_scale.py") in files
     bad = [(os.path.relpath(f, REPO), mod) for f in files
            for mod in _imported_roots(f) if mod in ("jax", "racon_tpu")]
     assert not bad
@@ -63,9 +68,12 @@ def test_port_polishes_with_jax_and_racon_tpu_blocked(tmp_path):
         sys.modules["jax"] = sys.modules["racon_tpu"] = None
         import contextlib, importlib, io, pkgutil
         import racon_tpu_torch
-        for mod in pkgutil.walk_packages(racon_tpu_torch.__path__,
-                                         "racon_tpu_torch."):
-            importlib.import_module(mod.name)
+        names = [mod.name for mod in pkgutil.walk_packages(
+            racon_tpu_torch.__path__, "racon_tpu_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        assert "racon_tpu_torch.tools.wrapper" in names
+        assert "racon_tpu_torch.benchmarks.genome_scale" in names
         from racon_tpu_torch.models.polish_model import PolisherConfig
         from racon_tpu_torch.native import bindings
         from racon_tpu_torch.polisher import create_polisher
@@ -93,6 +101,44 @@ def test_port_polishes_with_jax_and_racon_tpu_blocked(tmp_path):
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          env=env, timeout=600)
     assert res.returncode == 0, res.stderr.decode()[-2000:]
+
+
+def test_wrapper_runs_with_jax_and_racon_tpu_blocked(tmp_path):
+    """tools.wrapper.main(..., device="cpu") on the quick synthetic case in
+    a process where jax and racon_tpu cannot be imported: its stdout is
+    the port's FASTA, and it removes its work directory."""
+    from tests.test_torch_e2e import _synthetic_case
+
+    from racon_tpu_torch.models.polish_model import PolisherConfig
+    from racon_tpu_torch.polisher import create_polisher
+
+    paths = _synthetic_case(tmp_path)
+    code = textwrap.dedent(f"""
+        import sys
+        sys.modules["jax"] = sys.modules["racon_tpu"] = None
+        from racon_tpu_torch.tools import wrapper
+        rc = wrapper.main(["--backend", "cuda", "-t", "2", *{paths!r}],
+                          device="cpu")
+        assert rc == 0
+        assert not [m for m in sys.modules
+                    if m.split(".")[0] in ("jax", "racon_tpu")
+                    and sys.modules[m] is not None]
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         env=env, timeout=600, cwd=tmp_path)
+    assert res.returncode == 0, res.stderr.decode()[-2000:]
+    assert not [d for d in os.listdir(tmp_path)
+                if d.startswith("racon_work_directory_")]
+    # the wrapper's scores: m=5 x=-4 g=-8, quality threshold 10
+    cfg = PolisherConfig(backend="cuda", num_threads=2, match=5,
+                         mismatch=-4, gap=-8)
+    with contextlib.redirect_stderr(io.StringIO()):
+        p = create_polisher(*paths, cfg, device="cpu")
+        p.initialize()
+        want = p.polish(True)
+    assert res.stdout == b"".join(b">" + n + b"\n" + d + b"\n"
+                                  for n, d in want)
 
 
 def _edit_distance(bind, tmp_path):
