@@ -118,6 +118,24 @@ Phases (each must pass, or the script exits non-zero):
      0.2 Mb make_dataset cut into two targets: its stdout equal to the
      CLI's FASTA on each split, its work directory removed. Its launches
      go under "kf", "sam", "mhap_fastq" and "wrapper".
+ 10. (run right after phase 8, on phase 4's dataset) the gather route
+     (RACON_TPU_DEVGATHER=1, J6) and the Myers "rle" payload (J5): the
+     gather kernel against its plain version and the host packers at
+     (640,128) B = 4096, (256,128) B = 4097 and (5120,1024) B = 8 (odd
+     starts, clear deletion-cost bits, all-PAD items), with CUDA-event
+     times and the share of its bound; the bench workload under the
+     gather route (91, phase 3's consensus, 3 cohorts, no host row packer
+     called); phase 4's polish under it (the FASTA byte-equal, no host row
+     packer called in polish(), the stage split beside phase 4's, the blob
+     and meta H2D bytes, the peak device memory, device busy profiled);
+     the bench on the mesh (cuda:0, cuda:0) under it (91, every dispatch
+     in two shards); then align_walk_myers_padded(fmt="rle") at the align
+     chunks of (10240,1024) and (40960,1024) (its peak device memory), J5
+     and J1 there against their plain versions on 8 items spread over the
+     launch, the rle op lists against the rows route's on every item that
+     neither escapes, payload bytes an item on both routes and the ms of
+     K3, J5 and J1. Its launches go under "gather_bench",
+     "gather_polish", "gather_mesh2" and "myers_rle".
 Prints one JSON line of per-kernel results (the contract's keys, then
 every shape phase 2 measured under `shapes` and each run's launches
 under `launches_by_path`), the card's name and power limit, then the
@@ -166,25 +184,35 @@ KERNELS = {  # name -> (source, TPU kernel or jnp routine it replaces)
     "nw_sweep16": (CSRC + "nw_sweep16.cu", "racon_tpu/ops/nw_kernel.py:913"),
     "nw_sweep_block16": (CSRC + "nw_sweep16.cu",
                          "racon_tpu/ops/nw_kernel.py:1073"),
+    # the gather route's row gather (J6) and the Myers plane-to-move
+    # transform (J5)
+    "pack_gather": (CSRC + "pack_gather.cu",
+                    "racon_tpu/ops/nw_kernel.py:1476"),
+    "myers_moves": (CSRC + "myers_moves.cu",
+                    "racon_tpu/ops/myers_kernel.py:655"),
 }
 # the kernels of the main path (-w 500: K1, J1, K3, K4)
 MAIN_KERNELS = ("nw_sweep", "rle_walk", "myers_sweep", "myers_walk")
 # sources whose ptxas report (registers, spills) phase 1 prints
 PTXAS_SOURCES = ("nw_sweep.cu", "nw_sweep16.cu", "rows_walk.cu",
                  "nw_sweep_t.cu", "myers_walk.cu", "myers_sweep.cu",
-                 "rle_walk.cu")
+                 "rle_walk.cu", "pack_gather.cu", "myers_moves.cu")
 
 # Least-time model of one H100 SXM: 3.35 TB/s of HBM (NVIDIA data sheet)
 # and 16.73 Tops/s of INT32 (132 SMs x 64 INT32 lanes x 1.98 GHz boost:
 # half the FP32 lanes behind the data sheet's 67 TFLOP/s). Integer work
 # per unit, counted from each recurrence: a scored-sweep cell 15 ops
 # (substitution 5, diag/up/max 3, gc 3, scan max 1, moves 3), a Myers
-# 32-cell word 20 ops, a walk step or row 12 ops.
+# 32-cell word 20 ops, a walk step or row 12 ops, a move word of the
+# plane-to-move transform 40 ops (a 32 x 32 bit transpose 25 a word, the
+# codes 5, the band and row mask 10), a gathered output word 10 ops.
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 OPS_SWEEP_CELL = 15
 OPS_MYERS_WORD = 20
 OPS_WALK_STEP = 12
+OPS_MOVES_WORD = 40
+OPS_GATHER_WORD = 10
 CELLS_PER_OP16 = 2   # the int16 sweeps: two cells per 16x2 instruction
 PTXAS = {}           # kernel (with its template arguments) -> registers
 
@@ -329,6 +357,25 @@ def cuda_ms(fn, reps=5):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def graph_ms(launch, reps=20, replays=5):
+    """CUDA-event ms a launch of `launch` (a raw kernel call on
+    preallocated outputs), captured reps times in a CUDA graph and the
+    graph replayed: the kernel's own time, where cuda_ms's loop around a
+    kernel of a few microseconds times the host's calls instead."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launch()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            launch()
+    return cuda_ms(graph.replay, reps=replays) / reps
 
 
 def host_ms(fn):
@@ -784,11 +831,12 @@ def phase_kernels16(results):
                 "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")})
 
 
-def phase_bench(threads, results):
+def phase_bench(threads, results, state):
     """Phase 3: consensus stage on the bench workload, with the RLE walk
     (the default), then the rows walk (RACON_TPU_WALK=rows), at the
     default cohort count (3), then once in int16 and once in one cohort
-    (RACON_TPU_COHORTS=1)."""
+    (RACON_TPU_COHORTS=1). Leaves the first run's consensus in `state`
+    for phase 10."""
     from racon_tpu_torch.kernels import LAUNCHES, reset_launches
     from racon_tpu_torch.models.polish_model import PolisherConfig
     from racon_tpu_torch.native import bindings
@@ -817,6 +865,7 @@ def phase_bench(threads, results):
             dt = time.perf_counter() - t0
             counts = dict(LAUNCHES)
             d = bindings.edit_distance(b"".join(cons), true.tobytes())
+            state.setdefault("bench_cons", cons)
             prof = {k: round(v, 3) for k, v in stage.prof.items()}
             label = walk + ("_dp16" if int16 else "")
             escapes.setdefault(label, int(stage.prof["escaped_items"]))
@@ -850,11 +899,12 @@ def phase_bench(threads, results):
     log(f"[bench] band escapes per walk: {escapes}")
 
 
-def _polish_cli(tag, wd, argv):
+def _polish_cli(tag, wd, argv, around_polish=contextlib.nullcontext):
     """The CLI's own argument path (raconx-torch ...), then
     create_polisher -> initialize -> polish with the counts reset just
-    before; the peak device memory of initialize(). Returns (polisher,
-    polished contigs, launches)."""
+    before (polish inside the context around_polish() gives); the peak
+    device memory of initialize() and of polish(), kept as p.peaks.
+    Returns (polisher, polished contigs, launches)."""
     import torch
 
     from racon_tpu_torch import cli
@@ -873,16 +923,20 @@ def _polish_cli(tag, wd, argv):
         p.initialize()
         t1 = time.perf_counter()
         peak = torch.cuda.max_memory_allocated()
-        out = p.polish(drop_unpolished_sequences=True)
+        torch.cuda.reset_peak_memory_stats()
+        with around_polish():
+            out = p.polish(drop_unpolished_sequences=True)
     t2 = time.perf_counter()
     counts = dict(LAUNCHES)
     p.wall_times = (t1 - t0, t2 - t1)
+    p.peaks = (peak, torch.cuda.max_memory_allocated())
     n_win = p.windows.num_windows
     a = p.align_stage.stats
     c = p.consensus_stage.prof
     c_total = c["device_items"] + c["host_items"] - c["escaped_items"]
     log(f"[{tag}] initialize {t1 - t0:.3f} s (peak device memory "
-        f"{peak / 2**30:.3f} GiB), polish {t2 - t1:.3f} s, {n_win} windows "
+        f"{peak / 2**30:.3f} GiB), polish {t2 - t1:.3f} s (peak "
+        f"{p.peaks[1] / 2**30:.3f} GiB), {n_win} windows "
         f"= {n_win / (t2 - t1):.2f} windows/s; launches {counts}")
     log(f"[{tag}] host realign: align {a['host_items']}/{a['items']} "
         f"overlaps ({100 * a['host_items'] / max(1, a['items']):.3f}%), "
@@ -1040,7 +1094,8 @@ def phase_polish(wd, genome_mb, threads, results, state):
                                                 str(threads)])
     state.update(out=out, counts=counts, times=p.wall_times,
                  items=p.align_stage.stats["items"],
-                 windows=p.windows.num_windows)
+                 windows=p.windows.num_windows, split=_split(p),
+                 peaks=p.peaks)
     if _stage_split("polish", p, out) != 3:
         raise SmokeFailure("the default polish did not run 3 cohorts")
     record_launches(results, "polish_w500", counts)
@@ -1085,12 +1140,17 @@ def phase_polish(wd, genome_mb, threads, results, state):
     state["cli50"] = _profile_cli()
 
 
+def _split(p):
+    """The consensus stage's split (s) of polisher `p`."""
+    return {k: round(p.consensus_stage.prof[k + "_s"], 3) for k in (
+        "dispatch", "fetch", "decode", "poa_round", "host_fallback")}
+
+
 def _stage_split(tag, p, out):
     """Log the consensus stage's cohort count and split (s) of polisher
     `p`, and its FASTA's sha256; returns the cohort count."""
     c = p.consensus_stage
-    split = {k: round(c.prof[k + "_s"], 3) for k in (
-        "dispatch", "fetch", "decode", "poa_round", "host_fallback")}
+    split = _split(p)
     log(f"[{tag}] the consensus stage ran {c.n_cohorts} cohorts; its "
         f"split (s) {split}; FASTA sha256 "
         f"{hashlib.sha256(out[0][1]).hexdigest()}")
@@ -1426,6 +1486,374 @@ def _dist_polish(wd, threads, results, state):
     if out != state["cli50"]:
         raise SmokeFailure("torchrun raconx-torch --distributed: stdout is "
                            "not the single-process CLI's FASTA")
+
+
+def phase_gather(wd, threads, results, state):
+    """Phase 10 (right after phase 8, on phase 4's dataset): the gather
+    route (J6, RACON_TPU_DEVGATHER=1) and the Myers "rle" payload (J5).
+    The gather kernel against its plain version and the host packers; the
+    bench workload, phase 4's polish and the bench on the mesh (cuda:0,
+    cuda:0) under the gather route, each equal to its dense run with no
+    host row packer called; then J5 and J1 at the Myers tiers."""
+    _gather_kernel(results)
+    _gather_bench(threads, results, state)
+    _gather_polish(wd, threads, results, state)
+    _gather_mesh(threads, results)
+    _myers_rle(results, threads)
+
+
+@contextlib.contextmanager
+def _count_packers(calls):
+    """Count the host row packers' calls (bindings.pack_rows_nib /
+    pack_rows_bits) into calls["n"] for the block."""
+    from racon_tpu_torch.native import bindings
+
+    real = {k: getattr(bindings, k) for k in ("pack_rows_nib",
+                                              "pack_rows_bits")}
+    calls["n"] = 0
+
+    def counted(fn):
+        def call(*args, **kwargs):
+            calls["n"] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for k, fn in real.items():
+        setattr(bindings, k, counted(fn))
+    try:
+        yield calls
+    finally:
+        for k, fn in real.items():
+            setattr(bindings, k, fn)
+
+
+def _gather_items(rng, B, cap):
+    """The gather route's inputs for B items at cap: code blobs of layer
+    and backbone codes (0..4) and a deletion-cost bit blob 30 % clear, as
+    the stage makes them, and meta rows with odd starts, rows of length
+    cap and one ending at each blob's end, every 7th item all PAD.
+    Returns (word blobs, meta, the numpy blobs the host packers read)."""
+    import numpy as np
+
+    from racon_tpu_torch.ops import gather
+
+    L = B * cap // 2 + cap + 7
+    q8 = rng.integers(0, 5, L).astype(np.int8)
+    t8 = rng.integers(0, 5, L).astype(np.int8)
+    dmask = rng.random(L) >= 0.3
+    lens = rng.integers(cap // 2, cap + 1, (2, B))
+    lens[:, 0] = cap
+    lens[:, 6::7] = 0
+    starts = rng.integers(0, L - cap, (2, B))
+    starts[:, 1] = L - lens[:, 1]
+    starts[:, 2::2] |= 1
+    meta = np.stack([starts[0], lens[0], starts[1], lens[1]],
+                    1).astype(np.int32)
+    words = (gather.code_words(q8), gather.code_words(t8),
+             gather.bit_words(dmask))
+    return words, meta, (q8, t8, dmask.view(np.int8))
+
+
+def _gather_kernel(results):
+    """Phase 10 (a): pack_gather at (640,128) B = 4096, (256,128) B = 4097
+    and (5120,1024) B = 8 against its plain version and the host packers,
+    byte for byte; CUDA-event ms, the host packers' ms, and the share of
+    the bytes bound."""
+    import numpy as np
+    import torch
+
+    from racon_tpu_torch.kernels.build import kernels
+    from racon_tpu_torch.native import bindings
+    from racon_tpu_torch.ops import gather
+    from racon_tpu_torch.ops.geometry import PAD_CODE
+
+    rng = np.random.default_rng(1476)
+    for cap, W, B in ((640, 128, 4096), (256, 128, 4097), (5120, 1024, 8)):
+        words, meta, (q8, t8, del8) = _gather_items(rng, B, cap)
+        dev = [torch.from_numpy(x).cuda() for x in (*words, meta)]
+        geo = dict(m_cap=cap, n_cap=cap)
+        got = gather.pack_gather(*dev, **geo)
+        plain, plain_ms = host_ms(lambda: gather.pack_gather_plain(
+            *(torch.from_numpy(x) for x in (*words, meta)), **geo))
+        qs, m, ts, n = meta.T.astype(np.int64)
+        packers, packers_ms = host_ms(lambda: (
+            bindings.pack_rows_nib(q8, qs, qs + m, cap, PAD_CODE, 8),
+            bindings.pack_rows_nib(t8, ts, ts + n, cap, PAD_CODE, 8),
+            bindings.pack_rows_bits(del8, ts, ts + n, cap, 8)))
+        err = 0
+        for part, g, p, h in zip(("q4", "t4", "dcb"), got, plain, packers):
+            err = max(err, compare(f"pack_gather {part} ({cap}) B={B}", g,
+                                   p))
+            compare(f"pack_gather {part} plain vs the host packer", p,
+                    torch.from_numpy(h))
+        ms = cuda_ms(lambda: gather.pack_gather(*dev, **geo))
+        outs = [torch.empty_like(x) for x in got]
+        dms = graph_ms(lambda: kernels().pack_gather(*dev, *outs, cap, cap))
+        for part, g, p in zip(("q4", "t4", "dcb"), outs, plain):
+            compare(f"pack_gather {part} ({cap}) B={B}, graph replay", g, p)
+        out_words = B * (cap // 8 + cap // 8 + cap // 32)
+        nbytes = (4 * out_words + meta.nbytes
+                  + int(m.sum() + n.sum()) // 2 + int(n.sum()) // 8)
+        bg, byg = bound(nbytes, out_words * OPS_GATHER_WORD)
+        log(f"[gather] pack_gather ({cap},{W}) B={B}: byte-equal to its "
+            f"plain version and to the host packers ({int((m == 0).sum())} "
+            f"all-PAD items); {ms:.4f} ms a call (CUDA events), "
+            f"{dms:.4f} ms a launch in a CUDA graph, {100 * bg / dms:.2f} "
+            f"% of its bound {bg:.5f} ms by {byg} ({nbytes} bytes); plain "
+            f"CPU "
+            f"{plain_ms:.1f} ms, host packers {packers_ms:.2f} ms on 8 "
+            "threads")
+        record_shape(results, "pack_gather", cap, W, B, "consensus",
+                     max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bg,
+                     bound_by=byg, graph_ms=dms, host_packers_ms=packers_ms)
+
+
+def _gather_bench(threads, results, state):
+    """Phase 10 (b): the bench workload under RACON_TPU_DEVGATHER=1: edit
+    distance 91, the consensus equal to phase 3's, 3 cohorts, the gather
+    kernel launched and no host row packer called."""
+    from racon_tpu_torch.kernels import LAUNCHES, reset_launches
+    from racon_tpu_torch.models.polish_model import PolisherConfig
+    from racon_tpu_torch.native import bindings
+    from racon_tpu_torch.ops.consensus_stage import TorchConsensusStage
+    from racon_tpu_torch.testing.synth import build_workload
+    from racon_tpu_torch.utils.logger import Logger
+
+    windows, true = build_workload(seed=1234)
+    cfg = PolisherConfig(backend="cuda", num_threads=threads, match=5,
+                         mismatch=-4, gap=-8)
+    packs = {}
+    stage = TorchConsensusStage(cfg, "cuda")
+    reset_launches()
+    t0 = time.perf_counter()
+    with setenv("RACON_TPU_DEVGATHER", "1"), _count_packers(packs), \
+            contextlib.redirect_stderr(io.StringIO()):
+        cons, _ = stage.consensus_windows(windows, cfg, Logger())
+    dt = time.perf_counter() - t0
+    counts = dict(LAUNCHES)
+    record_launches(results, "gather_bench", counts)
+    d = bindings.edit_distance(b"".join(cons), true.tobytes())
+    prof = {k: round(v, 3) for k, v in stage.prof.items()}
+    log(f"[gather] bench workload, RACON_TPU_DEVGATHER=1, "
+        f"{stage.n_cohorts} cohorts: {dt:.3f} s = "
+        f"{windows.num_windows / dt:.2f} windows/s; edit distance {d}; "
+        f"host row packer calls {packs['n']}; launches {counts}; stage "
+        f"{prof}")
+    if d != 91 or cons != state["bench_cons"]:
+        raise SmokeFailure(f"gather bench: edit distance {d}, consensus "
+                           "equal to phase 3's: "
+                           f"{cons == state['bench_cons']}")
+    if (not counts["pack_gather"] or packs["n"] or stage.n_cohorts != 3
+            or stage.prof["gather_dense_chunks"]):
+        raise SmokeFailure(f"gather bench: launches {counts}, packer calls "
+                           f"{packs['n']}, {stage.n_cohorts} cohorts")
+
+
+def _gather_polish(wd, threads, results, state):
+    """Phase 10 (c): phase 4's polish under RACON_TPU_DEVGATHER=1: the
+    FASTA byte-equal to phase 4's, no host row packer called in polish(),
+    the stage split beside phase 4's dense one, the blob and meta H2D
+    bytes, the peak device memory; then polish() profiled: device busy."""
+    argv = [*POLISH_ARGV, "-t", str(threads)]
+    packs = {}
+    with setenv("RACON_TPU_DEVGATHER", "1"):
+        p, out, counts = _polish_cli("gather", wd, argv,
+                                     lambda: _count_packers(packs))
+    record_launches(results, "gather_polish", counts)
+    results["pack_gather"]["launches"] = counts["pack_gather"]
+    c = p.consensus_stage.prof
+    log(f"[gather] 4.6 Mb polish, RACON_TPU_DEVGATHER=1: stage split (s) "
+        f"{_split(p)} against phase 4's dense {state['split']}; polish "
+        f"{p.wall_times[1]:.3f} s (phase 4 {state['times'][1]:.3f} s); "
+        f"H2D blobs {int(c['gather_blob_bytes'])} bytes, meta "
+        f"{int(c['gather_meta_bytes'])} bytes for {int(c['gather_items'])} "
+        f"items; peak device memory of polish() {p.peaks[1] / 2**30:.3f} "
+        f"GiB (phase 4 {state['peaks'][1] / 2**30:.3f} GiB); host row "
+        f"packer calls in polish() {packs['n']}; pack_gather "
+        f"{counts['pack_gather']} launches")
+    if out != state["out"]:
+        raise SmokeFailure("the gather polish differs from phase 4's")
+    if (packs["n"] or not counts["pack_gather"]
+            or c["gather_dense_chunks"] or not c["gather_items"]):
+        raise SmokeFailure(f"gather polish: packer calls {packs['n']}, "
+                           f"launches {counts}, stage {dict(c)}")
+    with setenv("RACON_TPU_DEVGATHER", "1"):
+        pr = _profile_polish(wd, argv, "gather")
+    ref = state["profile"]
+    log(f"[gather] polish() device busy {pr['busy']:.3f} s of "
+        f"{pr['wall']:.3f} s profiled, {pr['in_dispatch']:.3f} s of it "
+        f"inside dispatch (phase 4 dense: {ref['busy']:.3f} s of "
+        f"{ref['wall']:.3f} s, {ref['in_dispatch']:.3f} s)")
+    results["pack_gather"]["gather_polish"] = dict(
+        split=_split(p), dense_split=state["split"], polish_s=p.wall_times[1],
+        dense_polish_s=state["times"][1],
+        blob_bytes=c["gather_blob_bytes"], meta_bytes=c["gather_meta_bytes"],
+        peak_bytes=p.peaks[1], busy_s=pr["busy"], dense_busy_s=ref["busy"])
+
+
+def _gather_mesh(threads, results):
+    """Phase 10 (d): the bench workload under the gather route with the
+    mesh pinned to MESH2: edit distance 91, every fused dispatch in two
+    shards on cuda:0, one gather launch a shard."""
+    from racon_tpu_torch.kernels import LAUNCHES, reset_launches
+    from racon_tpu_torch.models.polish_model import PolisherConfig
+    from racon_tpu_torch.native import bindings
+    from racon_tpu_torch.ops.consensus_stage import TorchConsensusStage
+    from racon_tpu_torch.parallel import mesh
+    from racon_tpu_torch.testing.synth import build_workload
+    from racon_tpu_torch.utils.logger import Logger
+
+    real = mesh.sharded_align_walk_gather
+    seen = {"calls": 0, "shards": 0, "short": 0, "devices": set()}
+
+    def watch(m, qb, tb, db, meta, **kwargs):
+        payloads, scores = real(m, qb, tb, db, meta, **kwargs)
+        seen["calls"] += 1
+        seen["shards"] += len(payloads)
+        seen["short"] += len(payloads) != min(2, len(meta))
+        seen["devices"].update(str(x.device) for x in payloads)
+        return payloads, scores
+
+    windows, true = build_workload(seed=1234)
+    cfg = PolisherConfig(backend="cuda", num_threads=threads, match=5,
+                         mismatch=-4, gap=-8)
+    mesh.sharded_align_walk_gather = watch
+    mesh.set_active_mesh(MESH2)
+    try:
+        stage = TorchConsensusStage(cfg, "cuda")
+        reset_launches()
+        with setenv("RACON_TPU_DEVGATHER", "1"), \
+                contextlib.redirect_stderr(io.StringIO()):
+            cons, _ = stage.consensus_windows(windows, cfg, Logger())
+    finally:
+        mesh.sharded_align_walk_gather = real
+        mesh.clear_active_mesh()
+    counts = dict(LAUNCHES)
+    record_launches(results, "gather_mesh2", counts)
+    d = bindings.edit_distance(b"".join(cons), true.tobytes())
+    log(f"[gather] bench on {list(MESH2)} under the gather route: edit "
+        f"distance {d}; {seen['calls']} fused dispatches in "
+        f"{seen['shards']} shards on {sorted(seen['devices'])}; launches "
+        f"{counts}")
+    if (d != 91 or not seen["calls"] or seen["short"]
+            or seen["devices"] != {"cuda:0"}
+            or counts["pack_gather"] != seen["shards"]
+            or counts["rle_walk"] != seen["shards"]):
+        raise SmokeFailure(f"gather mesh2: edit distance {d}, dispatches "
+                           f"{seen}, launches {counts}")
+
+
+def _myers_ops(fmt, payload, cap, W, m, n, threads):
+    """Decoded op lists of a walk payload, one array an item."""
+    import numpy as np
+
+    from racon_tpu_torch.ops.nw_kernel import payload_decoder
+
+    decode, codes, budget = payload_decoder(fmt, payload, cap, W)
+    ops, off, cnt = decode(codes, budget, np.asarray(m, np.int64),
+                           np.asarray(n, np.int64), threads)
+    return [ops[int(o):int(o) + int(k)] for o, k in zip(off, cnt)]
+
+
+def _myers_rle(results, threads):
+    """Phase 10 (e): align_walk_myers_padded(fmt="rle") at the align
+    chunks of (10240,1024) and the kF tier (40960,1024) (items made as
+    phases 2 and 9 make them), counts reset before and read after both:
+    the peak device memory of each. Then on each shape's planes: J5
+    against its plain version and J1 against its plain version on 8 items
+    spread over the launch (an escape, an all-PAD item and the last among
+    them), J1's payload equal to the fused call's, the rle op lists equal
+    to the rows route's for every item that neither escapes; payload bytes
+    an item on both routes and the ms of K3, J5 and J1."""
+    import numpy as np
+    import torch
+
+    from racon_tpu_torch.kernels import LAUNCHES, reset_launches
+    from racon_tpu_torch.ops import myers_kernel as mk
+    from racon_tpu_torch.ops import nw_kernel as nk
+    from racon_tpu_torch.ops.align_stage import _chunk_size
+    from racon_tpu_torch.ops.batch import to_device
+    from racon_tpu_torch.ops.geometry import rle_events
+
+    runs = []
+    reset_launches()
+    for cap, W in ((10240, 1024), KF_TIER):
+        B = _chunk_size(cap, W, True)
+        items = make_items(np.random.default_rng(cap + 5), B, cap, W, -1)
+        q4, t4, _, m, n = items
+        torch.cuda.reset_peak_memory_stats()
+        payload, _, fmt = mk.align_walk_myers_padded(
+            q4, t4, m, n, m_cap=cap, n_cap=cap, w_band=W, device="cuda",
+            fmt="rle")
+        torch.cuda.synchronize()
+        if fmt != "rle":
+            raise SmokeFailure(f"myers rle at ({cap},{W}): payload {fmt}")
+        runs.append((cap, W, B, items, payload,
+                     torch.cuda.max_memory_allocated()))
+    counts = dict(LAUNCHES)
+    record_launches(results, "myers_rle", counts)
+    results["myers_moves"]["launches"] = counts["myers_moves"]
+    if not all(counts[k] == 2 for k in ("myers_sweep", "myers_moves",
+                                        "rle_walk")) or counts["myers_walk"]:
+        raise SmokeFailure(f"myers rle launched {counts}")
+    for cap, W, B, (q4, t4, _, m, n), fused, peak in runs:
+        geo = dict(m_cap=cap, n_cap=cap, w_band=W)
+        g = to_device(q4, t4, None, m, n, m_cap=cap, n_cap=cap,
+                      device="cuda")
+        idx = np.unique(np.r_[np.linspace(0, B - 1, 8).astype(int), 3, 6,
+                              B - 1])
+        sel = torch.from_numpy(idx).cuda()
+        planes = mk.myers_sweep(g.q4, g.t4, **geo)
+        moves = mk.myers_moves(planes, g.m, **geo)
+        pl, ms, ns = planes[sel].cpu(), g.m[sel].cpu(), g.n[sel].cpu()
+        mp, moves_plain = host_ms(lambda: mk.myers_moves_plain(pl, ms,
+                                                               **geo))
+        err = compare(f"myers_moves ({cap},{W})", moves[sel], mp)
+        rle = nk.rle_walk(moves, g.m, g.n, **geo)
+        compare(f"rle_walk on J5's moves vs the fused call ({cap},{W})",
+                rle, fused.cpu())
+        pp, rle_plain = host_ms(lambda: nk.rle_walk_plain(mp, ms, ns,
+                                                          **geo))
+        rerr = compare(f"rle_walk ({cap},{W}) on J5's moves", rle[sel], pp)
+        rows = mk.myers_walk(planes, g.m, g.n, **geo)
+        rle_np, rows_np = rle.cpu().numpy(), rows.cpu().numpy()
+        esc = (rle_np[:, -1] != 0) | (rows_np[:, -1] != 0)
+        got = _myers_ops("rle", rle_np, cap, W, m, n, threads)
+        want = _myers_ops("rows", rows_np, cap, W, m, n, threads)
+        bad = [b for b in np.flatnonzero(~esc)
+               if not np.array_equal(got[b], want[b])]
+        if bad or not esc[3]:
+            raise SmokeFailure(f"myers rle ({cap},{W}): op lists differ "
+                               f"from the rows route's at items {bad[:8]}; "
+                               f"escapes {int(esc.sum())}")
+        k3 = cuda_ms(lambda: mk.myers_sweep(g.q4, g.t4, **geo), reps=3)
+        j5 = cuda_ms(lambda: mk.myers_moves(planes, g.m, **geo), reps=3)
+        j1 = cuda_ms(lambda: nk.rle_walk(moves, g.m, g.n, **geo), reps=3)
+        plane_bytes = B * cap * 2 * (W // 32) * 4
+        b5, by5 = bound(2 * plane_bytes + 4 * B,
+                        B * (cap // 16) * W * OPS_MOVES_WORD)
+        E = rle_events(cap, cap, W)
+        steps = _walk_steps_taken(rle.cpu(), "rle")
+        b1, by1 = _walk_bound(B, cap, W, E + 1, steps)
+        log(f"[myers_rle] ({cap},{W}) B={B}: J5 byte-equal on items "
+            f"{idx.tolist()} ({moves_plain:.1f} ms plain CPU), J1 too "
+            f"({rle_plain:.1f} ms plain CPU); the rle op lists equal the "
+            f"rows route's on all {int((~esc).sum())} items that neither "
+            f"escapes ({int(esc.sum())} escape); payload {E + 1} bytes an "
+            f"item (rows {cap + 2}); K3 {k3:.3f} ms, J5 {j5:.3f} ms "
+            f"({100 * b5 / j5:.1f} % of its bound {b5:.3f} ms by {by5}), "
+            f"J1 {j1:.3f} ms (bound {b1:.5f} ms by {by1}, {steps} steps); "
+            f"peak device memory of the fused call {peak / 2**30:.3f} GiB")
+        del planes, moves
+        record_shape(results, "myers_moves", cap, W, B, "align",
+                     max_abs_err=err, ms=j5, plain_ms=moves_plain,
+                     bound_ms=b5, bound_by=by5, plain_items=idx.tolist(),
+                     k3_ms=k3, j1_ms=j1, peak_bytes=peak,
+                     payload_bytes_item={"rle": E + 1, "rows": cap + 2})
+        record_shape(results, "rle_walk", cap, W, B, "align",
+                     max_abs_err=rerr, ms=j1, plain_ms=rle_plain,
+                     bound_ms=b1, bound_by=by1, plain_items=idx.tolist(),
+                     on="myers_moves")
 
 
 def short_reads(wd):
@@ -1974,7 +2402,7 @@ def main() -> int:
                    "bound_by": None, "library_ms": None, "shapes": [],
                    "launches_by_path": {}}
                for k, (src, rep) in KERNELS.items()}
-    state = {}  # what phase 4 leaves for phase 8
+    state = {}  # what phases 3 and 4 leave for phases 8 and 10
     t0 = time.perf_counter()
     try:
         with tempfile.TemporaryDirectory() as wd4, \
@@ -1983,10 +2411,11 @@ def main() -> int:
                 tempfile.TemporaryDirectory() as wd9:
             for phase in (lambda: phase_kernels(results, threads),
                           lambda: phase_kernels16(results),
-                          lambda: phase_bench(threads, results),
+                          lambda: phase_bench(threads, results, state),
                           lambda: phase_polish(wd4, args.genome_mb, threads,
                                                results, state),
                           lambda: phase_multi(wd4, threads, results, state),
+                          lambda: phase_gather(wd4, threads, results, state),
                           lambda: phase_wide(wd5, args.wide_genome_mb,
                                              threads, results),
                           lambda: phase_align(

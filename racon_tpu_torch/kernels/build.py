@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels at first use.
 
-Sources live in racon_tpu_torch/kernels/csrc: eight .cu files with plain
+Sources live in racon_tpu_torch/kernels/csrc: ten .cu files with plain
 C launchers (nw_sweep, nw_sweep16, rle_walk, rows_walk, packed_walk,
-myers_sweep, myers_walk, nw_sweep_t), their headers (common.cuh, sweep_scan.cuh), and
+myers_sweep, myers_walk, nw_sweep_t, pack_gather, myers_moves), their
+headers (common.cuh, sweep_scan.cuh), and
 one small binding, bindings.cpp, the only file that includes
 torch/extension.h. They are compiled for sm_90a into
 racon_tpu_torch/kernels/build/ (gitignored) by
@@ -31,7 +32,7 @@ CSRC = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "build")
 KERNEL_SOURCES = ("nw_sweep.cu", "nw_sweep16.cu", "rle_walk.cu", "rows_walk.cu",
                   "packed_walk.cu", "myers_sweep.cu", "myers_walk.cu",
-                  "nw_sweep_t.cu")
+                  "nw_sweep_t.cu", "pack_gather.cu", "myers_moves.cu")
 ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 _NAME = "racon_tpu_torch_kernels"
 
@@ -46,8 +47,8 @@ class KernelBuildError(RuntimeError):
 
 def kernels():
     """The loaded kernel module: `nw_sweep`, `nw_sweep16`, `rle_walk`,
-    `rows_walk`,
-    `packed_walk`, `myers_sweep`, `myers_walk` and `nw_sweep_t`, each
+    `rows_walk`, `packed_walk`, `myers_sweep`, `myers_walk`,
+    `nw_sweep_t`, `pack_gather` and `myers_moves`, each
     taking CUDA tensors on one device (outputs preallocated by the caller)
     and launching under that device, on its current stream."""
     global _kernels, build_seconds
@@ -120,7 +121,10 @@ class _CtypesKernels:
                 "rtt_packed_walk": [P] * 4 + [I] * 5 + [P],
                 "rtt_myers_sweep": [P] * 3 + [I] * 4 + [P],
                 "rtt_myers_walk": [P] * 4 + [I] * 4 + [P],
-                "rtt_nw_sweep_t": [P] * 5 + [I] * 9 + [P]}
+                "rtt_nw_sweep_t": [P] * 5 + [I] * 9 + [P],
+                "rtt_pack_gather": [P, I, P, I, P, I] + [P] * 4 + [I] * 3
+                + [P],
+                "rtt_myers_moves": [P] * 3 + [I] * 4 + [P]}
         for name, argtypes in sigs.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
@@ -274,3 +278,35 @@ class _CtypesKernels:
                 self._check(score, "score", torch.int32, (B,), dev)]
         self._call(self._lib.rtt_nw_sweep_t, dev, *ptrs, B, m_cap, n_cap, W,
                    match, mismatch, gap, span, variant)
+
+    def pack_gather(self, qb, tb, db, meta, q4, t4, dcb, m_cap, n_cap):
+        B = meta.shape[0]
+        dev = self._device(meta, "meta")
+        if not (m_cap % 8 == 0 and n_cap % 32 == 0 and m_cap > 0
+                and n_cap > 0):
+            raise ValueError("pack_gather: unsupported geometry")
+        blobs = []
+        for t, name in ((qb, "qblob"), (tb, "tblob"), (db, "dcblob")):
+            if t.ndim != 1 or t.shape[0] >= 2 ** 31:
+                raise ValueError(f"{name} must be 1-D, under 2^31 words")
+            blobs += [self._check(t, name, torch.int32, t.shape, dev),
+                      t.shape[0]]
+        ptrs = [self._check(meta, "meta", torch.int32, (B, 4), dev),
+                self._check(q4, "q4", torch.uint8, (B, m_cap // 2), dev),
+                self._check(t4, "t4", torch.uint8, (B, n_cap // 2), dev),
+                self._check(dcb, "dcb", torch.uint8, (B, n_cap // 8), dev)]
+        self._call(self._lib.rtt_pack_gather, dev, *blobs, *ptrs, B, m_cap,
+                   n_cap)
+
+    def myers_moves(self, planes, m, moves, m_cap, n_cap, W):
+        B = planes.shape[0]
+        dev = self._device(planes, "planes")
+        if not (W % 32 == 0 and W > 0 and m_cap % 16 == 0):
+            raise ValueError("myers_moves: unsupported geometry")
+        ptrs = [self._check(planes, "planes", torch.int32,
+                            (B, m_cap, 2, W // 32), dev),
+                self._check(m, "m", torch.int32, (B,), dev),
+                self._check(moves, "moves", torch.int32,
+                            (B, m_cap // 16, W), dev)]
+        self._call(self._lib.rtt_myers_moves, dev, *ptrs, B, m_cap, n_cap,
+                   W)

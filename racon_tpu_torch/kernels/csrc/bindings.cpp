@@ -40,6 +40,12 @@ int rtt_nw_sweep16(const uint8_t* q4, const uint8_t* t4, const uint8_t* dcb,
                    int32_t* moves, int32_t* score, int B, int m_cap,
                    int n_cap, int W, int match, int mismatch, int gap,
                    int span, int neg, cudaStream_t stream);
+int rtt_pack_gather(const int32_t* qb, int nq, const int32_t* tb, int nt,
+                    const int32_t* db, int nd, const int32_t* meta,
+                    uint8_t* q4, uint8_t* t4, uint8_t* dcb, int B, int m_cap,
+                    int n_cap, cudaStream_t stream);
+int rtt_myers_moves(const int32_t* planes, const int32_t* m, int32_t* moves,
+                    int B, int m_cap, int n_cap, int W, cudaStream_t stream);
 const char* rtt_error_string(int e);
 }
 
@@ -220,6 +226,48 @@ void nw_sweep_t(const at::Tensor& q, const at::Tensor& tp,
                       mismatch, gap, span, variant, stream(dev)));
 }
 
+void pack_gather(const at::Tensor& qb, const at::Tensor& tb,
+                 const at::Tensor& db, const at::Tensor& meta,
+                 const at::Tensor& q4, const at::Tensor& t4,
+                 const at::Tensor& dcb, int64_t m_cap, int64_t n_cap) {
+  const int64_t B = meta.size(0);
+  const at::Device dev = launch_device(meta, "meta");
+  const c10::cuda::CUDAGuard guard(dev);
+  check(qb, "qblob", at::kInt, {qb.size(0)}, dev);
+  check(tb, "tblob", at::kInt, {tb.size(0)}, dev);
+  check(db, "dcblob", at::kInt, {db.size(0)}, dev);
+  check(meta, "meta", at::kInt, {B, 4}, dev);
+  check(q4, "q4", at::kByte, {B, m_cap / 2}, dev);
+  check(t4, "t4", at::kByte, {B, n_cap / 2}, dev);
+  check(dcb, "dcb", at::kByte, {B, n_cap / 8}, dev);
+  TORCH_CHECK(m_cap % 8 == 0 && n_cap % 32 == 0 && m_cap > 0 && n_cap > 0,
+              "pack_gather: unsupported geometry");
+  TORCH_CHECK(qb.size(0) < (1LL << 31) && tb.size(0) < (1LL << 31) &&
+              db.size(0) < (1LL << 31), "pack_gather: blob too large");
+  done(rtt_pack_gather(qb.data_ptr<int32_t>(), qb.size(0),
+                       tb.data_ptr<int32_t>(), tb.size(0),
+                       db.data_ptr<int32_t>(), db.size(0),
+                       meta.data_ptr<int32_t>(), q4.data_ptr<uint8_t>(),
+                       t4.data_ptr<uint8_t>(), dcb.data_ptr<uint8_t>(), B,
+                       m_cap, n_cap, stream(dev)));
+}
+
+void myers_moves(const at::Tensor& planes, const at::Tensor& m,
+                 const at::Tensor& moves, int64_t m_cap, int64_t n_cap,
+                 int64_t W) {
+  const int64_t B = planes.size(0);
+  const at::Device dev = launch_device(planes, "planes");
+  const c10::cuda::CUDAGuard guard(dev);
+  check(planes, "planes", at::kInt, {B, m_cap, 2, W / 32}, dev);
+  check(m, "m", at::kInt, {B}, dev);
+  check(moves, "moves", at::kInt, {B, m_cap / 16, W}, dev);
+  TORCH_CHECK(W % 32 == 0 && W > 0 && m_cap % 16 == 0,
+              "myers_moves: unsupported geometry");
+  done(rtt_myers_moves(planes.data_ptr<int32_t>(), m.data_ptr<int32_t>(),
+                       moves.data_ptr<int32_t>(), B, m_cap, n_cap, W,
+                       stream(dev)));
+}
+
 }  // namespace
 
 PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
@@ -231,4 +279,6 @@ PYBIND11_MODULE(TORCH_EXTENSION_NAME, mod) {
   mod.def("myers_sweep", &myers_sweep);
   mod.def("myers_walk", &myers_walk);
   mod.def("nw_sweep_t", &nw_sweep_t);
+  mod.def("pack_gather", &pack_gather);
+  mod.def("myers_moves", &myers_moves);
 }

@@ -19,7 +19,9 @@ ops/prefetch.resolve joins in shard order before the decode.
 
 Left out of the port, each for a reason recorded in ROADMAP.md:
 `small_batch_to_host` (keyed on the JAX prewarm state) and the slow-link
-branch of `myers_tier_fmt` (a Myers tier always runs with "rows" here).
+branch of `myers_tier_fmt`, the route that picks the "rle" payload by
+itself (a Myers tier always runs with "rows" here). The "rle" payload
+itself is ported: align_walk_myers_padded(fmt="rle").
 """
 
 from __future__ import annotations

@@ -58,7 +58,8 @@ def check_packed(q4, t4, dcb, m, n, *, m_cap: int, n_cap: int) -> None:
             raise ValueError(f"{name} outside [0, {cap}]")
 
 
-def _move(arr, dtype, device) -> torch.Tensor:
+def upload(arr, dtype, device) -> torch.Tensor:
+    """A numpy array as a contiguous `dtype` tensor on `device`."""
     t = torch.from_numpy(np.ascontiguousarray(arr, dtype=dtype))
     if device.type != "cuda":
         return t.to(device)
@@ -74,11 +75,11 @@ def to_device(q4, t4, dcb, m, n, *, m_cap: int, n_cap: int,
     check_packed(q4, t4, dcb, m, n, m_cap=m_cap, n_cap=n_cap)
     device = torch.device(device)
     return PackedBatch(
-        q4=_move(q4, np.uint8, device),
-        t4=_move(t4, np.uint8, device),
-        dcb=None if dcb is None else _move(dcb, np.uint8, device),
-        m=_move(m, np.int32, device),
-        n=_move(n, np.int32, device))
+        q4=upload(q4, np.uint8, device),
+        t4=upload(t4, np.uint8, device),
+        dcb=None if dcb is None else upload(dcb, np.uint8, device),
+        m=upload(m, np.int32, device),
+        n=upload(n, np.int32, device))
 
 
 def unpack_codes(x4: torch.Tensor, cap: int) -> torch.Tensor:

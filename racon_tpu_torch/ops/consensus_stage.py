@@ -13,11 +13,20 @@ the tiers or escaping the band are realigned on the host thread pool, as
 in the reference; a tier wider than the sweep kernel takes would be too
 (counted as wide_host_items; none of the canonical tiers is).
 
+Under RACON_TPU_DEVGATHER=1 the stage dispatches the device-gather form
+(nw_kernel.align_walk_gather): each cohort's layer codes go up once as a
+word blob, each pass's backbone codes and deletion-cost bits once, and a
+chunk sends only its (B, 4) meta rows; the rows are gathered on the
+device (ops/gather.py) in place of the host packers, so every payload is
+byte for byte the dense route's. The default is the dense route, the
+reference's choice on a locally attached device.
+
 Left out of the port, each for a reason recorded in ROADMAP.md: the
 cheapest-path router `_route` and its tunnel calibrations (the stage always
-runs on the device), the padded-batch ladder (a kernel launch takes any
-batch size, so chunks launch at their exact size), and the device-resident
-gather form and the prewarm family.
+runs on the device), the padded-batch ladder and the gather form's blob
+buckets (a kernel launch takes any batch size and blob length, so chunks
+and blobs go up at their exact size), the link probe behind the gather
+form's automatic choice, and the prewarm family.
 
 On an active mesh (parallel/mesh.py) each chunk is split over its
 devices, the shards launched on every device before the host waits on
@@ -37,6 +46,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import sys
 import time
 from collections import defaultdict
 
@@ -47,8 +57,10 @@ from ..native import bindings
 from ..utils.phred import PHRED_OFFSET
 
 from . import prefetch
+from .gather import MAX_BLOB_ELEMS, bit_words, code_words, put_blob
 from .geometry import PAD_CODE, encode, sweep_fits
-from .nw_kernel import align_walk_padded, payload_decoder
+from .nw_kernel import (align_walk_gather, align_walk_padded, gather_devices,
+                        payload_decoder)
 
 _MOVES_BUDGET = 1 << 30  # device bytes of one chunk's move words
 
@@ -137,6 +149,7 @@ class TorchConsensusStage:
         self.tier_items: list[dict] = []
         self.n_cohorts = 0  # cohorts of the last consensus_windows()
         self.n_windows = 0  # windows of the last consensus_windows()
+        self.use_gather = False  # the last run's route: gather or dense
         self._ops_scratch = np.empty(0, np.int32)  # decode buffer
 
     def consensus_windows(self, windows, cfg, logger):
@@ -177,20 +190,28 @@ class TorchConsensusStage:
         max_expand = cap
 
         passes = max(1, cfg.refine_passes)
+        use_gather = self.use_gather = _will_use_gather()
 
         # cohort pipelining: the windows split into cohorts whose rounds
         # interleave, so one cohort's host decode and merge run while the
-        # other cohorts' chunks are on the device
-        self.n_cohorts = self._auto_cohorts(len(active), passes)
+        # other cohorts' chunks are on the device; the gather form also
+        # keeps each cohort's layer blob under RACON_TPU_GATHER_BLOB_ELEMS
+        self.n_cohorts = self._auto_cohorts(
+            len(active), passes,
+            gather_elems=int(st.lay_off[-1]) if use_gather else 0)
         cohorts = []
         bounds = np.linspace(0, len(active), self.n_cohorts + 1).astype(int)
         for lo, hi in zip(bounds[:-1], bounds[1:]):
             part = active[lo:hi]  # never empty: n_cohorts <= len(active)
             if self.n_cohorts == 1:
-                cohorts.append(_Cohort(part, st, state))
+                co = _Cohort(part, st, state)
             else:
-                cohorts.append(_Cohort(part, st.subset(np.arange(lo, hi)),
-                                       _RoundState(windows, part, cfg.gap)))
+                co = _Cohort(part, st.subset(np.arange(lo, hi)),
+                             _RoundState(windows, part, cfg.gap))
+            if use_gather:
+                with self._span("dispatch"):
+                    self._upload_layers(co)
+            cohorts.append(co)
 
         def dispatch(co):
             with self._span("dispatch"):
@@ -233,18 +254,51 @@ class TorchConsensusStage:
                             total_units, total_units)
         return [c if c is not None else b"" for c in consensus], polished
 
-    def _auto_cohorts(self, n_active: int, passes: int) -> int:
+    def _auto_cohorts(self, n_active: int, passes: int,
+                      gather_elems: int = 0) -> int:
         """Cohort count (the reference's _auto_cohorts without its link
         terms): 3 on a CUDA device when there are >= 256 windows and >= 2
-        passes, else 1; RACON_TPU_COHORTS forces; at most one cohort a
+        passes, else 1; where the gather form runs, raised so that each
+        cohort's layer blob (gather_elems elements in all) stays under
+        RACON_TPU_GATHER_BLOB_ELEMS (default 2^30, below the int32
+        indices' 2^31); RACON_TPU_COHORTS forces; at most one cohort a
         window."""
         n_coh = 1
         if self.device.type == "cuda" and n_active >= 256 and passes >= 2:
             n_coh = 3
+        if gather_elems:
+            try:
+                cap_e = int(os.environ.get("RACON_TPU_GATHER_BLOB_ELEMS",
+                                           1 << 30))
+            except ValueError:
+                cap_e = 1 << 30
+            n_coh = max(n_coh, -(-gather_elems // max(1, cap_e)))
         env_coh = os.environ.get("RACON_TPU_COHORTS")
         if env_coh:
             n_coh = int(env_coh)
         return max(1, min(n_coh, max(1, n_active)))
+
+    def _upload_layers(self, co) -> None:
+        """The gather form's per-cohort upload: the cohort's layer codes as
+        one word blob on each device of its dispatch (the mesh's, or the
+        stage's), addressed by offsets into this cohort's items
+        (_StaticItems.rebase_dev), which retirement subsets carry along.
+        A blob past the int32 indices' range leaves the cohort on the
+        dense route, counted and logged."""
+        co.st.rebase_dev()
+        elems = int(co.st.lay_off[-1])
+        if elems >= MAX_BLOB_ELEMS:
+            self._dense_note(f"a cohort's layer blob of {elems} elements")
+            return
+        words = code_words(co.st.lay_codes)
+        co.dev_q = put_blob(words, gather_devices(self.device))
+        self.prof["gather_blob_bytes"] += words.nbytes * len(co.dev_q)
+
+    @staticmethod
+    def _dense_note(what: str) -> None:
+        sys.stderr.write(f"[racon_tpu_torch::consensus] {what} passes the "
+                         "gather form's 2^31 element indices: dense "
+                         "route\n")
 
     @contextlib.contextmanager
     def _span(self, key: str):
@@ -284,6 +338,18 @@ class TorchConsensusStage:
             self.tier_items[co.pass_no][tiers[t] if t >= 0 else -1] += int(c)
         host_parts = [np.flatnonzero(tier_id < 0)]
         pending = []
+        blobs = None
+        if co.dev_q is not None:
+            if len(state.cur) < MAX_BLOB_ELEMS:
+                # the pass's blobs, once each, shared by every chunk
+                devices = gather_devices(self.device)
+                words = (code_words(cur_enc), bit_words(del8))
+                blobs = (co.dev_q, *(put_blob(w, devices) for w in words))
+                self.prof["gather_blob_bytes"] += sum(
+                    w.nbytes for w in words) * len(blobs[1])
+            else:
+                self._dense_note(f"a pass's backbone blob of "
+                                 f"{len(state.cur)} elements")
         for ti, (cap, w_band) in enumerate(tiers):
             idx = np.flatnonzero(tier_id == ti)
             if not len(idx):
@@ -296,18 +362,30 @@ class TorchConsensusStage:
             for lo, hi in chunk_spans(len(idx), chunk_size(cap, w_band,
                                                            8192)):
                 sel = idx[lo:hi]
-                q4 = bindings.pack_rows_nib(
-                    st.lay_codes, st.lay_off[sel], st.lay_off[sel] + mlen[sel],
-                    cap, PAD_CODE, thr)
-                t4 = bindings.pack_rows_nib(cur_enc, t_start[sel], t_end[sel],
-                                            cap, PAD_CODE, thr)
-                dcb = bindings.pack_rows_bits(del8, t_start[sel], t_end[sel],
-                                              cap, thr)
-                payload, _, fmt = align_walk_padded(
-                    q4, t4, dcb, mlen[sel].astype(np.int32),
-                    nlen[sel].astype(np.int32), m_cap=cap, n_cap=cap,
-                    w_band=w_band, match=cfg.match, mismatch=cfg.mismatch,
-                    gap=cfg.gap, device=self.device)
+                sc = dict(m_cap=cap, n_cap=cap, w_band=w_band,
+                          match=cfg.match, mismatch=cfg.mismatch, gap=cfg.gap,
+                          device=self.device)
+                if blobs is not None:
+                    meta = np.stack([st.lay_start_dev[sel], mlen[sel],
+                                     t_start[sel], nlen[sel]],
+                                    axis=1).astype(np.int32)
+                    payload, _, fmt = align_walk_gather(*blobs, meta, **sc)
+                    self.prof["gather_items"] += len(sel)
+                    self.prof["gather_meta_bytes"] += meta.nbytes
+                else:
+                    if self.use_gather:  # past the 2^31 guard
+                        self.prof["gather_dense_chunks"] += 1
+                    q4 = bindings.pack_rows_nib(
+                        st.lay_codes, st.lay_off[sel],
+                        st.lay_off[sel] + mlen[sel], cap, PAD_CODE, thr)
+                    t4 = bindings.pack_rows_nib(cur_enc, t_start[sel],
+                                                t_end[sel], cap, PAD_CODE,
+                                                thr)
+                    dcb = bindings.pack_rows_bits(del8, t_start[sel],
+                                                  t_end[sel], cap, thr)
+                    payload, _, fmt = align_walk_padded(
+                        q4, t4, dcb, mlen[sel].astype(np.int32),
+                        nlen[sel].astype(np.int32), **sc)
                 pending.append((sel, cap, w_band, fmt, payload,
                                 prefetch.submit(payload)))
                 self.prof["device_items"] += len(sel)
@@ -441,6 +519,7 @@ class _Cohort:
         self.state = state
         self.pass_no = 0
         self.pending = None
+        self.dev_q = None  # the gather form's layer blob, per device
 
 
 class _StaticItems:
@@ -470,6 +549,7 @@ class _StaticItems:
         self.lay_off = np.zeros(self.n_items + 1, np.int64)
         np.cumsum(qlen, out=self.lay_off[1:])
         self.lay_len = qlen
+        self.lay_start_dev = self.lay_off[:-1].copy()
         thr = _nthr()
         rc_blob, rc_start = store.rc_arrays()
         rq_blob, rq_start = store.rq_arrays()
@@ -516,6 +596,7 @@ class _StaticItems:
         s.lay_off = np.zeros(s.n_items + 1, np.int64)
         np.cumsum(klen, out=s.lay_off[1:])
         s.lay_len = klen
+        s.lay_start_dev = self.lay_start_dev[ksel]
         starts = self.lay_off[ksel]
         thr = _nthr()
         s.lay_blob = bindings.gather_ranges(self.lay_blob, starts, klen, thr)
@@ -526,6 +607,13 @@ class _StaticItems:
         s.win_id = self.win_id[keep_z]
         s.win_rank = self.win_rank[keep_z]
         return s
+
+    def rebase_dev(self) -> None:
+        """Make lay_start_dev the offsets into this item set's own layer
+        blob (not the blob it was cut from): called right before that blob
+        goes up as a cohort's device copy. Retirement subsets carry these
+        offsets, so they keep addressing the uploaded blob."""
+        self.lay_start_dev = self.lay_off[:-1].copy()
 
 
 class _RoundState:
@@ -563,6 +651,13 @@ class _RoundState:
         self.off = np.zeros(len(keep_z) + 1, np.int64)
         np.cumsum(lens, out=self.off[1:])
         self.has_w = self.has_w[keep_z]
+
+
+def _will_use_gather() -> bool:
+    """Whether the stage dispatches the device-gather form:
+    RACON_TPU_DEVGATHER=1 forces it; "0" or unset keeps the dense route,
+    the reference's choice without a slow link (read at call time)."""
+    return os.environ.get("RACON_TPU_DEVGATHER") == "1"
 
 
 def _nthr() -> int:

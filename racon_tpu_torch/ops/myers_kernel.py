@@ -1,11 +1,15 @@
 """Myers bit-parallel banded edit-distance sweep and its word-wise walk:
-the align stage's device core (port of the main path of
-racon_tpu/ops/myers_kernel.py).
+the align stage's device core (port of racon_tpu/ops/myers_kernel.py).
+Beside them, the plane-to-move transform myers_moves (J5): the planes
+turned into the scored sweep's 2-bit moves, so the RLE walk
+(nw_kernel.rle_walk) runs on Myers output and emits the compact "rle"
+payload (align_walk_myers_padded(fmt="rle"), ~cap/4 bytes an item
+against the rows payload's cap + 2).
 
 On a CUDA tensor each function launches its hand-written kernel
-(kernels/csrc/myers_sweep.cu, kernels/csrc/myers_walk.cu) and counts the
-launch; on a CPU tensor it runs the plain PyTorch version beside it; any
-other device raises.
+(kernels/csrc/myers_sweep.cu, kernels/csrc/myers_walk.cu,
+kernels/csrc/myers_moves.cu) and counts the launch; on a CPU tensor it
+runs the plain PyTorch version beside it; any other device raises.
 
 Layouts:
   planes  (B, m_cap, 2, W // 32) int32  per query row the DIAG (= Eq | ~D0)
@@ -16,6 +20,8 @@ Layouts:
                                         per-row records REC_DIAG/REC_UP |
                                         deletions << 2, the final-deletions
                                         byte, the escape flag
+  moves   (B, m_cap // 16, W) int32     myers_moves' output, the scored
+                                        sweep's layout (ops/nw_kernel.py)
 """
 
 from __future__ import annotations
@@ -24,9 +30,9 @@ import torch
 
 from ..kernels import LAUNCHES
 from .batch import to_device, unpack_codes
-from .geometry import (NW_CODES, REC_DIAG, REC_UP, band_dlo, guard_bits,
-                       myers_fits, peq_words, rows_payload_width)
-from .nw_kernel import _as_int32_bits, _device_kind, _mesh_for
+from .geometry import (NW_CODES, PACK, REC_DIAG, REC_UP, band_dlo,
+                       guard_bits, myers_fits, peq_words, rows_payload_width)
+from .nw_kernel import _as_int32_bits, _device_kind, _mesh_for, rle_walk
 
 _M32 = 0xFFFFFFFF
 
@@ -63,6 +69,24 @@ def myers_walk(planes, m, n, *, m_cap, n_cap, w_band):
     kernels().myers_walk(planes, m, n, payload, m_cap, n_cap, w_band)
     LAUNCHES["myers_walk"] += 1
     return payload
+
+
+def myers_moves(planes, m, *, m_cap, n_cap, w_band):
+    """planes from myers_sweep, m (B,) int32 -> moves (B, m_cap//16, W)
+    int32 in the scored sweep's layout: per cell 0 where the DIAG bit is
+    set, else 1 where UP is, else 2; 3 where jrow = i + dlo + k is < 1 or
+    > n_cap and for rows i > m. Replaces myers_moves_from_planes, whose
+    (m_cap//16, W, B) moves these are transposed."""
+    if _device_kind(planes) == "cpu":
+        return myers_moves_plain(planes, m, m_cap=m_cap, n_cap=n_cap,
+                                 w_band=w_band)
+    from ..kernels.build import kernels
+
+    moves = torch.empty((planes.shape[0], m_cap // PACK, w_band),
+                        dtype=torch.int32, device=planes.device)
+    kernels().myers_moves(planes, m, moves, m_cap, n_cap, w_band)
+    LAUNCHES["myers_moves"] += 1
+    return moves
 
 
 # ---------------------------------------------------------- plain versions
@@ -234,16 +258,57 @@ def myers_walk_plain(planes, m, n, *, m_cap, n_cap, w_band):
                      1).to(torch.uint8)
 
 
-def align_walk_myers_padded(q4, t4, m, n, *, m_cap, n_cap, w_band, device):
+def myers_moves_plain(planes, m, *, m_cap, n_cap, w_band, rows=1024):
+    """Plain PyTorch version of myers_moves on CPU tensors, `rows` query
+    rows at a time (the unpacked lanes of a whole item would take GBs at
+    the long-read tiers): per row the low code bit (DIAG clear, UP set)
+    and the high one (both clear) as band words, unpacked to lanes, 3 past
+    the band's columns and the item's rows, 16 rows packed a word."""
+    if planes.device.type != "cpu":
+        raise ValueError("myers_moves_plain takes CPU tensors")
+    B = planes.shape[0]
+    W = w_band
+    dlo = band_dlo(m_cap, n_cap, W)
+    bit = torch.arange(32, dtype=torch.int32)
+    k = torch.arange(W)
+    shifts = 2 * torch.arange(PACK, dtype=torch.int64)[:, None]
+    m64 = m.to(torch.int64)[:, None, None]
+    moves = torch.empty((B, m_cap // PACK, W), dtype=torch.int32)
+    for r0 in range(0, m_cap, rows):
+        r1 = min(m_cap, r0 + rows)
+        d, u = planes[:, r0:r1, 0], planes[:, r0:r1, 1]   # int32 words
+        lo, hi = ~d & u, ~(d | u)                          # codes 1 and 2
+        code = (((lo[..., None] >> bit) & 1)
+                | (((hi[..., None] >> bit) & 1) << 1))
+        code = code.reshape(B, r1 - r0, W)
+        i = torch.arange(r0 + 1, r1 + 1)[None, :, None]
+        jrow = i + dlo + k
+        valid = (jrow >= 1) & (jrow <= n_cap) & (i <= m64)
+        code = torch.where(valid, code, 3).to(torch.int64)
+        packed = (code.reshape(B, (r1 - r0) // PACK, PACK, W)
+                  << shifts).sum(2)
+        moves[:, r0 // PACK : r1 // PACK] = _as_int32_bits(packed)
+    return moves
+
+
+def align_walk_myers_padded(q4, t4, m, n, *, m_cap, n_cap, w_band, device,
+                            fmt="rows"):
     """The align stage's fused dispatch: the packed numpy batch goes to
-    `device`, through the Myers sweep and walk, and comes back as
-    (payload (B, m_cap + 2) uint8, score zeros (B,) int32, "rows") on that
-    device (decode with bindings.opstream_rows_to_ops_batch). As in the
-    reference, the edit-distance stage produces no score. The batch is not
-    padded: a kernel launch takes any B. On an active mesh of `device`'s
-    type (nw_kernel.align_walk_padded) the batch is split over it and
-    payload and score are lists of per-shard tensors; the payload stays
-    "rows", as the reference's does on a mesh."""
+    `device`, through the Myers sweep and a walk, and comes back as
+    (payload, score zeros (B,) int32, payload format) on that device. fmt
+    "rows" (the stage's): the Myers walk's (B, m_cap + 2) rows payload
+    (decode with bindings.opstream_rows_to_ops_batch). fmt "rle"
+    (racon_tpu's align_walk_myers_rle_batch): the planes through
+    myers_moves and the RLE walk at rle_events(m_cap, n_cap, W), the
+    planes released before the walk; the (B, E + 1) "rle" payload that
+    nw_kernel.payload_decoder decodes. As in the reference, the
+    edit-distance stage produces no score. The batch is not padded: a
+    kernel launch takes any B. On an active mesh of `device`'s type
+    (nw_kernel.align_walk_padded) the batch is split over it and payload
+    and score are lists of per-shard tensors; the payload is "rows"
+    whatever fmt asks, as the reference's is on a mesh."""
+    if fmt not in ("rows", "rle"):
+        raise ValueError(f"unknown Myers payload format {fmt!r}")
     mesh = _mesh_for(device)
     if mesh is not None:
         from ..parallel.mesh import sharded_align_walk
@@ -254,9 +319,11 @@ def align_walk_myers_padded(q4, t4, m, n, *, m_cap, n_cap, w_band, device):
         return payload, score, "rows"
     batch = to_device(q4, t4, None, m, n, m_cap=m_cap, n_cap=n_cap,
                       device=device)
-    planes = myers_sweep(batch.q4, batch.t4, m_cap=m_cap, n_cap=n_cap,
-                         w_band=w_band)
-    payload = myers_walk(planes, batch.m, batch.n, m_cap=m_cap, n_cap=n_cap,
-                         w_band=w_band)
+    geo = dict(m_cap=m_cap, n_cap=n_cap, w_band=w_band)
+    planes = myers_sweep(batch.q4, batch.t4, **geo)
     score = torch.zeros_like(batch.m)
-    return payload, score, "rows"
+    if fmt == "rows":
+        return myers_walk(planes, batch.m, batch.n, **geo), score, "rows"
+    moves = myers_moves(planes, batch.m, **geo)
+    del planes  # the moves are as large: free the planes before the walk
+    return rle_walk(moves, batch.m, batch.n, **geo), score, "rle"

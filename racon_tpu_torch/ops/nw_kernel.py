@@ -1,6 +1,10 @@
 """Scored banded-NW sweep and the RLE, rows and packed2 traceback walks:
 the consensus stage's device core, and the align stage's under
-RACON_TPU_MYERS=0 (port of racon_tpu/ops/nw_kernel.py).
+RACON_TPU_MYERS=0 (port of racon_tpu/ops/nw_kernel.py). The fused calls:
+align_walk_padded takes the host's packed rows; align_walk_gather (the
+device-gather form, RACON_TPU_DEVGATHER=1) takes word blobs already on
+the device and per-item meta rows, cuts the rows out on the device
+(ops/gather.pack_gather) and runs the same sweep and walk.
 
 Each function takes its tensors on one device. On a CUDA tensor it
 launches the hand-written kernel (kernels/csrc/nw_sweep.cu,
@@ -42,7 +46,7 @@ import torch
 
 from ..kernels import LAUNCHES
 from ..native import bindings
-from .batch import to_device, unpack_bits, unpack_codes
+from .batch import to_device, unpack_bits, unpack_codes, upload
 from .geometry import (GROUP, NEG, OP_STREAM_SKIP, PAD_CODE, PACK,
                        REC_DIAG, REC_UP, RLE_LEFT, RLE_SKIP, RLE_UP,
                        SCAN_FILL, band_dlo, dp_consts, rle_events,
@@ -514,6 +518,8 @@ def packed_walk_plain(moves, m, n, *, m_cap, n_cap, w_band, max_steps=None):
 
 # ------------------------------------------------------------ fused call
 
+WALKS = {"rle": rle_walk, "rows": rows_walk, "packed2": packed_walk}
+
 
 def _mesh_for(device):
     """The active mesh (parallel.mesh.active_mesh) when its devices are of
@@ -582,7 +588,69 @@ def align_walk_padded(q4, t4, dcb, m, n, *, m_cap, n_cap, w_band, match,
     moves, score = nw_sweep(batch.q4, batch.t4, batch.dcb, m_cap=m_cap,
                             n_cap=n_cap, w_band=w_band, match=match,
                             mismatch=mismatch, gap=gap)
-    walk = {"rle": rle_walk, "rows": rows_walk, "packed2": packed_walk}[fmt]
-    payload = walk(moves, batch.m, batch.n, m_cap=m_cap, n_cap=n_cap,
-                   w_band=w_band)
+    payload = WALKS[fmt](moves, batch.m, batch.n, m_cap=m_cap, n_cap=n_cap,
+                         w_band=w_band)
+    return payload, score, fmt
+
+
+def gather_devices(device) -> tuple:
+    """The devices the gather route's blobs must be on for `device`: the
+    active mesh's (_mesh_for), else `device` alone."""
+    return _mesh_for(device) or (torch.device(device),)
+
+
+def gather_sweep_walk(qblob, tblob, dcblob, meta, *, m_cap, n_cap, w_band,
+                      match, mismatch, gap, fmt):
+    """The gather route's body on one device: meta (B, 4) int32 on the
+    blobs' device -> (payload, score) there. The rows are gathered
+    (ops/gather.pack_gather), then swept and walked as align_walk_padded
+    does."""
+    from .gather import pack_gather
+
+    q4, t4, dcb = pack_gather(qblob, tblob, dcblob, meta, m_cap=m_cap,
+                              n_cap=n_cap)
+    moves, score = nw_sweep(q4, t4, dcb, m_cap=m_cap, n_cap=n_cap,
+                            w_band=w_band, match=match, mismatch=mismatch,
+                            gap=gap)
+    payload = WALKS[fmt](moves, meta[:, 1].contiguous(),
+                         meta[:, 3].contiguous(), m_cap=m_cap, n_cap=n_cap,
+                         w_band=w_band)
+    return payload, score
+
+
+def align_walk_gather(qblob, tblob, dcblob, meta, *, m_cap, n_cap, w_band,
+                      match, mismatch, gap, device):
+    """The consensus stage's fused dispatch in the device-gather form
+    (racon_tpu's align_walk_gather_padded / align_walk_gather_batch):
+    qblob, tblob and dcblob are word blobs already uploaded to every
+    device of gather_devices(device) ({torch.device: tensor},
+    ops/gather.put_blob), meta the chunk's (B, 4) int32 numpy rows
+    [q_start, m, t_start, n]. Only meta goes up; returns (payload, score,
+    fmt) as align_walk_padded does, byte for byte its result on the same
+    rows packed by the host. fmt is walk_fmt's, as on the dense route (the
+    reference's gather_fmt, which turns tiers failing its VMEM model into
+    packed2, has no counterpart: decoded op lists do not depend on the
+    walk format). No batch padding and no blob buckets: a launch takes any
+    B and any blob length. On an active mesh the meta rows are split over
+    it (mesh.sharded_align_walk_gather) and payload and score are lists of
+    per-shard tensors."""
+    from .gather import check_meta
+
+    fmt = walk_fmt(w_band)
+    geo = dict(m_cap=m_cap, n_cap=n_cap, w_band=w_band, match=match,
+               mismatch=mismatch, gap=gap, fmt=fmt)
+    any_dev = next(iter(qblob))
+    check_meta(meta, len(qblob[any_dev]), len(tblob[any_dev]), m_cap=m_cap,
+               n_cap=n_cap)
+    mesh = _mesh_for(device)
+    if mesh is not None:
+        from ..parallel.mesh import sharded_align_walk_gather
+
+        payload, score = sharded_align_walk_gather(
+            mesh, qblob, tblob, dcblob, meta, **geo)
+        return payload, score, fmt
+    dev = torch.device(device)
+    meta_t = upload(meta, np.int32, dev)
+    payload, score = gather_sweep_walk(qblob[dev], tblob[dev], dcblob[dev],
+                                       meta_t, **geo)
     return payload, score, fmt

@@ -22,12 +22,10 @@ import os
 import numpy as np
 import torch
 
-from ..ops.batch import to_device
+from ..ops.batch import to_device, upload
 from ..ops.myers_kernel import myers_sweep, myers_walk
-from ..ops.nw_kernel import nw_sweep, packed_walk, rle_walk, rows_walk
+from ..ops.nw_kernel import WALKS, gather_sweep_walk, nw_sweep
 from . import dist
-
-_WALKS = {"rle": rle_walk, "rows": rows_walk, "packed2": packed_walk}
 
 
 def distributed_init(**kwargs) -> None:
@@ -110,7 +108,28 @@ def sharded_align_walk(mesh, q4, t4, dcb, m, n, *, m_cap, n_cap, w_band,
             moves, score = nw_sweep(b.q4, b.t4, b.dcb, match=match,
                                     mismatch=mismatch, gap=gap, **geo)
             extra = {} if max_steps is None else dict(max_steps=max_steps)
-            payload = _WALKS[fmt](moves, b.m, b.n, **geo, **extra)
+            payload = WALKS[fmt](moves, b.m, b.n, **geo, **extra)
+        payloads.append(payload)
+        scores.append(score)
+    return payloads, scores
+
+
+def sharded_align_walk_gather(mesh, qblob, tblob, dcblob, meta, *, m_cap,
+                              n_cap, w_band, match, mismatch, gap, fmt):
+    """The device-gather form of sharded_align_walk (racon_tpu's
+    sharded_align_walk_gather): the word blobs are already on every
+    distinct device of the mesh ({torch.device: tensor}, copied once each
+    by ops/gather.put_blob) and only the (B, 4) numpy meta rows are split;
+    each shard's meta goes up to its device, where its rows are gathered,
+    swept and walked (nw_kernel.gather_sweep_walk), all shards launched
+    before the host waits on any. Returns (payloads, scores): one tensor
+    per shard, on its device, in shard order."""
+    payloads, scores = [], []
+    for dev, lo, hi in shards(mesh, len(meta)):
+        payload, score = gather_sweep_walk(
+            qblob[dev], tblob[dev], dcblob[dev],
+            upload(meta[lo:hi], np.int32, dev), m_cap=m_cap, n_cap=n_cap,
+            w_band=w_band, match=match, mismatch=mismatch, gap=gap, fmt=fmt)
         payloads.append(payload)
         scores.append(score)
     return payloads, scores

@@ -523,3 +523,146 @@ def test_launch_follows_the_tensor_device(gpu):
     with pytest.raises(RuntimeError, match="is on"):
         kernels().nw_sweep(g.q4, g.t4.to("cuda:0"), g.dcb, moves, score,
                            640, 640, 128, 5, -4, -8, 128)
+
+
+def _gather_blobs(seed, B, cap):
+    """Word blobs and meta rows for the gather kernel: odd starts, rows of
+    length 0 and cap, a row ending at each blob's end, an all-PAD item,
+    deletion-cost bits 30 % clear; also the numpy blobs the host packers
+    read."""
+    from racon_tpu_torch.ops import gather
+
+    rng = np.random.default_rng(seed)
+    L = 2 * B * cap // 3 + cap + 7
+    q8 = rng.integers(0, 5, L).astype(np.int8)
+    t8 = rng.integers(0, 5, L).astype(np.int8)
+    dmask = rng.random(L) >= 0.3
+    lens = rng.integers(0, cap + 1, (2, B))
+    lens[:, 0], lens[:, 1] = 0, cap
+    starts = rng.integers(0, L - cap, (2, B))
+    starts[:, 2] = L - lens[:, 2]
+    starts[:, 3] |= 1
+    meta = np.stack([starts[0], lens[0], starts[1], lens[1]],
+                    1).astype(np.int32)
+    words = (gather.code_words(q8), gather.code_words(t8),
+             gather.bit_words(dmask))
+    return words, meta, (q8, t8, dmask.view(np.int8))
+
+
+@pytest.mark.parametrize("cap,B", [(640, 4096), (256, 4097), (5120, 8)])
+def test_pack_gather_matches_plain_and_packers(gpu, cap, B):
+    """J6's kernel against its plain version and the host packers over the
+    same ranges, byte for byte, one launch counted."""
+    from racon_tpu_torch.native import bindings
+    from racon_tpu_torch.ops import gather
+    from racon_tpu_torch.ops.geometry import PAD_CODE
+
+    words, meta, (q8, t8, del8) = _gather_blobs(cap + B, B, cap)
+    dev = [torch.from_numpy(w).to(gpu) for w in (*words, meta)]
+    before = LAUNCHES["pack_gather"]
+    got = gather.pack_gather(*dev, m_cap=cap, n_cap=cap)
+    torch.cuda.synchronize()
+    assert LAUNCHES["pack_gather"] == before + 1
+    plain = gather.pack_gather_plain(
+        *(torch.from_numpy(w) for w in (*words, meta)), m_cap=cap, n_cap=cap)
+    qs, m, ts, n = meta.T.astype(np.int64)
+    packers = (bindings.pack_rows_nib(q8, qs, qs + m, cap, PAD_CODE, 8),
+               bindings.pack_rows_nib(t8, ts, ts + n, cap, PAD_CODE, 8),
+               bindings.pack_rows_bits(del8, ts, ts + n, cap, 8))
+    for g, p, h in zip(got, plain, packers):
+        assert torch.equal(g.cpu(), p)
+        assert np.array_equal(p.numpy(), h)
+
+
+def test_align_walk_gather_matches_dense_on_card(gpu):
+    """The gather route's fused call against the dense one on the same
+    rows, and on the mesh (cuda:0, cuda:0) in two shards."""
+    from racon_tpu_torch.native import bindings
+    from racon_tpu_torch.ops import gather
+    from racon_tpu_torch.ops.geometry import PAD_CODE
+    from racon_tpu_torch.parallel import mesh
+
+    cap, w, B = 640, 128, 4097
+    words, meta, (q8, t8, del8) = _gather_blobs(9, B, cap)
+    geo = dict(m_cap=cap, n_cap=cap, w_band=w, match=5, mismatch=-4, gap=-8)
+    qs, m, ts, n = meta.T.astype(np.int64)
+    want_p, want_s, fmt = nk.align_walk_padded(
+        bindings.pack_rows_nib(q8, qs, qs + m, cap, PAD_CODE, 8),
+        bindings.pack_rows_nib(t8, ts, ts + n, cap, PAD_CODE, 8),
+        bindings.pack_rows_bits(del8, ts, ts + n, cap, 8),
+        m.astype(np.int32), n.astype(np.int32), **geo, device=gpu)
+    blobs = [gather.put_blob(x, [gpu]) for x in words]
+    payload, score, gfmt = nk.align_walk_gather(*blobs, meta, **geo,
+                                                device=gpu)
+    assert gfmt == fmt
+    assert torch.equal(payload, want_p) and torch.equal(score, want_s)
+    dev = torch.device("cuda", 0)
+    blobs = [gather.put_blob(x, [dev, dev]) for x in words]
+    assert all(list(b) == [dev] for b in blobs)
+    payloads, scores = mesh.sharded_align_walk_gather(
+        (dev, dev), *blobs, meta, **geo, fmt=fmt)
+    assert [len(p) for p in payloads] == [(B + 1) // 2, B // 2]
+    assert torch.equal(torch.cat(payloads), want_p)
+    assert torch.equal(torch.cat(scores), want_s)
+
+
+def test_consensus_gather_equals_dense_on_card(gpu, monkeypatch):
+    """The stage on the bench workload under RACON_TPU_DEVGATHER=1: the
+    dense route's bytes, the gather kernel launched, no host packer."""
+    from racon_tpu_torch.models.polish_model import PolisherConfig
+    from racon_tpu_torch.native import bindings
+    from racon_tpu_torch.ops.consensus_stage import TorchConsensusStage
+    from racon_tpu_torch.testing.synth import build_workload
+    from racon_tpu_torch.utils.logger import Logger
+
+    windows, _ = build_workload(seed=1234)
+    cfg = PolisherConfig(backend="cuda", num_threads=8, match=5,
+                         mismatch=-4, gap=-8)
+    packed = []
+    real = bindings.pack_rows_nib
+
+    def counted(*a, **kw):
+        packed.append(1)
+        return real(*a, **kw)
+
+    monkeypatch.setattr(bindings, "pack_rows_nib", counted)
+    outs = []
+    for env in (None, "1"):
+        if env is None:
+            monkeypatch.delenv("RACON_TPU_DEVGATHER", raising=False)
+        else:
+            monkeypatch.setenv("RACON_TPU_DEVGATHER", env)
+        packed.clear()
+        before = LAUNCHES["pack_gather"]
+        stage = TorchConsensusStage(cfg, gpu)
+        with contextlib.redirect_stderr(io.StringIO()):
+            outs.append(stage.consensus_windows(windows, cfg, Logger()))
+        launched = LAUNCHES["pack_gather"] - before
+        assert (launched > 0 and not packed) if env else (packed and
+                                                          not launched)
+    assert outs[0] == outs[1]
+
+
+@pytest.mark.parametrize("cap,w,B", [(10240, 1024, 96), (2560, 512, 257),
+                                     (512, 64, 9)])
+def test_myers_moves_and_rle_payload_match_plain(gpu, cap, w, B):
+    """J5's kernel against its plain version on the sweep kernel's planes
+    (8 items spread over the launch), and the "rle" payload of
+    align_walk_myers_padded against the plain route's on those items."""
+    q4, t4, _, m, n = _packed(cap + w + 1, B, cap, w)
+    geo = dict(m_cap=cap, n_cap=cap, w_band=w)
+    g = to_device(q4, t4, None, m, n, m_cap=cap, n_cap=cap, device=gpu)
+    idx = np.unique(np.r_[np.linspace(0, B - 1, 8).astype(int), 6, B - 1])
+    sel = torch.from_numpy(idx).to(gpu)
+    planes = mk.myers_sweep(g.q4, g.t4, **geo)
+    before = LAUNCHES["myers_moves"]
+    moves = mk.myers_moves(planes, g.m, **geo)
+    torch.cuda.synchronize()
+    assert LAUNCHES["myers_moves"] == before + 1
+    want = mk.myers_moves_plain(planes[sel].cpu(), g.m[sel].cpu(), **geo)
+    assert torch.equal(moves[sel].cpu(), want)
+    payload, _, fmt = mk.align_walk_myers_padded(q4, t4, m, n, **geo,
+                                                 device=gpu, fmt="rle")
+    assert fmt == "rle"
+    assert torch.equal(payload[sel].cpu(), nk.rle_walk_plain(
+        want, g.m[sel].cpu(), g.n[sel].cpu(), **geo))

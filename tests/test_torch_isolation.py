@@ -50,6 +50,7 @@ def test_no_import_of_jax_or_racon_tpu():
         files += [os.path.join(root, f) for f in names if f.endswith(".py")]
     assert len(files) > 30
     assert os.path.join(PORT, "ops", "prefetch.py") in files
+    assert os.path.join(PORT, "ops", "gather.py") in files
     for name in ("__init__.py", "dist.py", "mesh.py"):
         assert os.path.join(PORT, "parallel", name) in files
     assert os.path.join(PORT, "testing", "dist_polish.py") in files
@@ -74,6 +75,7 @@ def test_port_polishes_with_jax_and_racon_tpu_blocked(tmp_path):
             importlib.import_module(name)
         assert "racon_tpu_torch.tools.wrapper" in names
         assert "racon_tpu_torch.benchmarks.genome_scale" in names
+        assert "racon_tpu_torch.ops.gather" in names
         from racon_tpu_torch.models.polish_model import PolisherConfig
         from racon_tpu_torch.native import bindings
         from racon_tpu_torch.polisher import create_polisher
