@@ -6,7 +6,7 @@
 Phases (each must pass, or the script exits non-zero):
   1. the card's name and power limit, the torch/CUDA versions, the build
      of the kernels from racon_tpu_torch/kernels/csrc, and ptxas's
-     register and spill counts of the sweep (warp and block kernels), its
+     register and spill counts of the sweep (warp and strip kernels), its
      int16 form (nw_sweep16.cu), the rows walk, the panel sweep's five
      instantiations and the Myers walk (a separate `nvcc -Xptxas -v`
      compile of their sources, run beside the build);
@@ -22,7 +22,10 @@ Phases (each must pass, or the script exits non-zero):
      (10240,2048) and (10240,4096), the times of one chunk at
      (10240,2048) and (40960,4096), the align stage's scored route at
      (10240,1024): sweep, RLE and rows walk at 0/-1/-1 with unit
-     deletion costs, and the warp sweep's other tiers (256,128) B = 4097
+     deletion costs, the block sweep at the stages' chunks (10240,1024)
+     B = 409 (align scores) and (5120,1024) B = 819 (item 0 of each
+     checked), with us a query row and the per-SM floor at every
+     strip-sweep shape, and the warp sweep's other tiers (256,128) B = 4097
      and (1280,256) B = 1024 with the RLE walk; then under
      RACON_TPU_DP16=1 the int16 sweeps (K1-16 at (640,128) B = 4096 and
      (256,128) B = 4097, K2-16 at (2560,512) B = 1024 with the align
@@ -597,6 +600,28 @@ def myers_shape(results, cap, W, B, rng, sample, tag="", main=False):
         blocks=myers_walk_launch(B, W)[0])
 
 
+def _floor_numbers(B, cap, W, ms):
+    """us a query row and the per-SM floor of a strip-sweep shape (none for
+    the warp sweep): one item an SM, 15 ops a cell at its 64 INT32 lanes,
+    an SM's items one after another (the card bound spreads the cells over
+    every SM instead)."""
+    if W <= 256:
+        return {}
+    row_us = 1e6 * OPS_SWEEP_CELL * W / (64 * 1.98e9)
+    return dict(us_per_row=1e3 * ms / cap, sm_floor_us_per_row=row_us,
+                sm_floor_ms=-(-B // 132) * cap * row_us / 1e3)
+
+
+def _floor_note(B, cap, W, ms):
+    n = _floor_numbers(B, cap, W, ms)
+    if not n:
+        return ""
+    return (f"; {n['us_per_row']:.4f} us a row, per-SM floor "
+            f"{n['sm_floor_us_per_row']:.4f} us a row = "
+            f"{n['sm_floor_ms']:.4f} ms, {100 * n['sm_floor_ms'] / ms:.1f} "
+            f"% of it")
+
+
 def phase_kernels(results, threads):
     """Phase 2: each kernel vs its plain version at main-path shapes."""
     import numpy as np
@@ -649,9 +674,10 @@ def phase_kernels(results, threads):
         tag = "" if sc is consensus else " (align scores)"
         log(f"[kernels] {sweep_name} ({cap},{W}) B={B}{tag}: byte-equal; "
             f"{sweep:.3f} ms (plain CPU {sweep_plain:.1f} ms, bound "
-            f"{bs:.5f} ms)")
+            f"{bs:.5f} ms){_floor_note(B, cap, W, sweep)}")
         numbers = dict(max_abs_err=err, ms=sweep, plain_ms=sweep_plain,
-                       bound_ms=bs, bound_by=bys)
+                       bound_ms=bs, bound_by=bys,
+                       **_floor_numbers(B, cap, W, sweep))
         shape(sweep_name, cap, W, B, sc, **numbers)
         for fmt in fmts:
             walk_name, walk, plain_walk = walks[fmt]
@@ -715,12 +741,43 @@ def phase_kernels(results, threads):
             checked = (f"; item 0 byte-equal to the plain versions (plain "
                        f"CPU sweep {sweep_plain:.1f} ms for that one item)")
         log(f"[kernels] nw_sweep_wide+packed_walk ({cap},{W}) B={Bc} (one "
-            f"chunk): sweep {s_big:.3f} ms (bound {bs:.3f} ms), walk "
-            f"{w_big:.3f} ms (bound {bw:.5f} ms, {steps} steps){checked}")
+            f"chunk): sweep {s_big:.3f} ms (bound {bs:.3f} ms"
+            f"{_floor_note(Bc, cap, W, s_big)}), walk {w_big:.3f} ms (bound "
+            f"{bw:.5f} ms, {steps} steps){checked}")
         shape("nw_sweep_wide", cap, W, Bc, sc, max_abs_err=err, ms=s_big,
-              plain_ms_item0=sweep_plain, bound_ms=bs, bound_by=bys)
+              plain_ms_item0=sweep_plain, bound_ms=bs, bound_by=bys,
+              **_floor_numbers(Bc, cap, W, s_big))
         shape("packed_walk", cap, W, Bc, sc, max_abs_err=werr, ms=w_big,
               bound_ms=bw, bound_by=byw)
+
+    def block_chunk(cap, W, Bc, rng, sc):
+        """The block sweep at a stage's chunk, item 0 against the plain
+        version."""
+        geo = dict(m_cap=cap, n_cap=cap, w_band=W)
+        q4, t4, dcb, m, n = make_items(rng, Bc, cap, W, sc["gap"])
+        if sc is align:
+            dcb[:] = 0xFF
+        big = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap,
+                        device="cuda")
+        mv, sco = nk.nw_sweep(big.q4, big.t4, big.dcb, **geo, **sc)
+        ms = cuda_ms(lambda: nk.nw_sweep(big.q4, big.t4, big.dcb, **geo,
+                                         **sc), reps=3)
+        one = to_device(q4[:1], t4[:1], dcb[:1], m[:1], n[:1], m_cap=cap,
+                        n_cap=cap, device="cpu")
+        (pm, ps), plain = host_ms(lambda: nk.nw_sweep_plain(
+            one.q4, one.t4, one.dcb, **geo, **sc))
+        err = max(compare("nw_sweep_block moves (chunk item 0)", mv[:1], pm),
+                  compare("nw_sweep_block score (chunk item 0)", sco[:1],
+                          ps))
+        bs, bys = _sweep_bound(Bc, cap, W)
+        tag = "" if sc is consensus else " (align scores)"
+        log(f"[kernels] nw_sweep_block ({cap},{W}) B={Bc} (one chunk){tag}: "
+            f"{ms:.3f} ms (bound {bs:.4f} ms{_floor_note(Bc, cap, W, ms)}); "
+            f"item 0 byte-equal to the plain version (plain CPU {plain:.1f}"
+            f" ms for that one item)")
+        shape("nw_sweep_block", cap, W, Bc, sc, max_abs_err=err, ms=ms,
+              plain_ms_item0=plain, bound_ms=bs, bound_by=bys,
+              **_floor_numbers(Bc, cap, W, ms))
 
     scored(640, 128, 4096, None, ("rle", "rows"), rng, consensus)
     scored(5120, 1024, 8, None, ("rle", "rows"), rng, consensus)
@@ -743,6 +800,10 @@ def phase_kernels(results, threads):
     scored(10240, 4096, 4, 1500, ("packed2",), rng4, align)
     chunk(40960, 4096, 1500, rng4, True)
     scored(10240, 1024, 4, None, ("rle", "rows"), rng4, align)
+    # the block sweep at the stages' chunks: the align stage's scored route
+    # at (10240,1024), the consensus stage at (5120,1024)
+    block_chunk(10240, 1024, _chunk_size(10240, 1024, False), rng4, align)
+    block_chunk(5120, 1024, chunk_size(5120, 1024, 8192), rng4, consensus)
     # the warp sweep's other consensus tiers, on a seed of their own: a
     # ragged last block (B % 4 == 1) and W = 256 (eight lanes a thread)
     rng1 = np.random.default_rng(256)

@@ -1,24 +1,34 @@
-"""The Myers sweep (K3, kernels/csrc/myers_sweep.cu) and the RLE walk (J1,
-kernels/csrc/rle_walk.cu) of this checkout against those of another
-version of the sources, on one card, timed in turns:
+"""The Myers sweep (K3, kernels/csrc/myers_sweep.cu), the RLE walk (J1,
+kernels/csrc/rle_walk.cu) and the scored sweep's strip kernel (K2 and K5,
+kernels/csrc/nw_sweep.cu at W > 256) of this checkout against those of
+another version of the sources, on one card, timed in turns:
 
     python -m racon_tpu_torch.benchmarks.kernel_ab OTHER_CSRC [--json PATH]
 
 OTHER_CSRC is a directory holding the other version's myers_sweep.cu,
-rle_walk.cu and common.cuh (for example unpacked with `git archive
-<commit> racon_tpu_torch/kernels/csrc | tar -x`). Both versions are
-built alike, by nvcc into a shared library of their plain C launchers
-bound with ctypes, and fed the same inputs (seed 7: every 7th item all
-PAD, every 11th cut short so that it leaves the band). Per shape: both
-outputs byte for byte on every item, then CUDA-event ms (mean of 5
-launches after a warm-up) in the order other, this, this, other; each
-version's mean, us per item and the share of the bound (the least time,
-as chip_smoke.py computes it: bytes over 3.35 TB/s or INT32 ops over
-16.73 T/s, whichever is larger). Shapes: K3 at (10240,1024) B = 409 (the
-align stage's former chunk) and B = 1024 (its chunk now), (2560,512)
-B = 1024 and (10240,4096) B = 409; J1 at (640,128) B = 4096 and 4097,
-with the steps its items take (one move word each) and the longest
-walk's, and this build's time over that walk's steps.
+rle_walk.cu, nw_sweep.cu, sweep_scan.cuh and common.cuh (for example
+unpacked with `git archive <commit> racon_tpu_torch/kernels/csrc | tar
+-x`). Both versions are built alike, by nvcc into a shared library of
+their plain C launchers bound with ctypes, and fed the same inputs (seed
+7: every 7th item all PAD, every 11th cut short so that it leaves the
+band). Per shape: both outputs byte for byte on every item, then
+CUDA-event ms (mean of 5 launches after a warm-up) in the order other,
+this, this, other; each version's mean, us per item and the share of the
+bound (the least time, as chip_smoke.py computes it: bytes over 3.35
+TB/s or INT32 ops over 16.73 T/s, whichever is larger). Shapes: K3 at
+(10240,1024) B = 409 (the align stage's former chunk) and B = 1024 (its
+chunk now), (2560,512) B = 1024 and (10240,4096) B = 409; J1 at
+(640,128) B = 4096 and 4097, with the steps its items take (one move
+word each) and the longest walk's, and this build's time over that
+walk's steps; the strip sweep at K2's (10240,1024) B = 4 and B = 409
+(the align stage's scored chunk) with the align scores (0/-1/-1, every
+column's deletion bit set) and (5120,1024) B = 8 with the consensus
+scores (5/-4/-8, 30 % free deletion columns), and at K5's (10240,2048)
+B = 16 and B = 204 (the consensus chunk) with the consensus scores and
+(10240,4096) B = 4 and (40960,4096) B = 25 (the align chunk) with the
+align scores: besides, its us a query row and the per-SM floor (15 ops
+a cell over an SM's 64 INT32 lanes at 1.98 GHz, the items of an SM one
+after another).
 
 Needs nvcc and a CUDA device (exit 2 without one). Prints the card's
 name and power limit first and one JSON line last.
@@ -38,16 +48,18 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "..", "kernels", "csrc")
-SOURCES = ("myers_sweep.cu", "rle_walk.cu")
+SOURCES = ("myers_sweep.cu", "rle_walk.cu", "nw_sweep.cu")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 OPS_MYERS_WORD = 20
 OPS_WALK_STEP = 12
+OPS_SWEEP_CELL = 15
+SMS, SM_INT32_OPS_PER_S = 132, 64 * 1.98e9
 
 
 def build(csrc: str, out: str) -> ctypes.CDLL:
-    """nvcc the two sources of `csrc` into `out` and load it."""
+    """nvcc the sources of `csrc` into `out` and load it."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     nvcc = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "nvcc")
@@ -58,7 +70,9 @@ def build(csrc: str, out: str) -> ctypes.CDLL:
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.rtt_myers_sweep.argtypes = [P] * 3 + [I] * 4 + [P]
     lib.rtt_rle_walk.argtypes = [P] * 4 + [I] * 5 + [P]
+    lib.rtt_nw_sweep.argtypes = [P] * 5 + [I] * 8 + [P]
     lib.rtt_myers_sweep.restype = lib.rtt_rle_walk.restype = I
+    lib.rtt_nw_sweep.restype = I
     return lib
 
 
@@ -149,10 +163,68 @@ def in_turns(name, shape, B, libs, run, out, bound):
     return row
 
 
+def strip_sweeps(libs, rng, stream):
+    """The strip sweep (K2, K5) of both builds at the stages' shapes."""
+    import torch
+
+    from racon_tpu_torch.ops.batch import to_device
+    from racon_tpu_torch.ops.geometry import scan_span
+
+    consensus, align = (5, -4, -8), (0, -1, -1)
+    rows = []
+    for cap, W, B, sc in ((10240, 1024, 4, align), (10240, 1024, 409, align),
+                          (5120, 1024, 8, consensus),
+                          (10240, 2048, 16, consensus),
+                          (10240, 2048, 204, consensus),
+                          (10240, 4096, 4, align),
+                          (40960, 4096, 25, align)):
+        q4, t4, m, n = items(rng, B, cap, W)
+        dcb = np.packbits(rng.random((B, cap)) >= 0.3, axis=1,
+                          bitorder="little")
+        if sc == align:
+            dcb[:] = 0xFF
+        g = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap,
+                      device="cuda")
+        # moves (B, cap/16, W) and score (B,) in one buffer, so that one
+        # comparison covers both
+        nmv = B * (cap // 16) * W
+        buf = torch.empty(nmv + B, dtype=torch.int32, device="cuda")
+
+        def sweep(lib):
+            rc = lib.rtt_nw_sweep(ptr(g.q4), ptr(g.t4), ptr(g.dcb),
+                                  ptr(buf), ptr(buf[nmv:]), B, cap, cap, W,
+                                  *sc, scan_span(W), stream())
+            if rc:
+                raise SystemExit(f"rtt_nw_sweep: error {rc}")
+
+        nbytes = B * (cap // 2 + cap // 2 + cap // 8) + 4 * (nmv + B)
+        row = in_turns("nw_sweep_block" if W <= 1024 else "nw_sweep_wide",
+                       (cap, W), B, libs, sweep, lambda: buf,
+                       bound_ms(nbytes, B * cap * W * OPS_SWEEP_CELL))
+        # one item an SM: its rows one after another at the SM's INT32 rate
+        floor_row = 1e6 * OPS_SWEEP_CELL * W / SM_INT32_OPS_PER_S
+        floor_ms = -(-B // SMS) * cap * floor_row / 1e3
+        row.update(us_per_row={k: 1e3 * row[k]["ms"] / cap
+                               for k in ("other", "this")},
+                   sm_floor_us_per_row=floor_row, sm_floor_ms=floor_ms,
+                   sm_floor_share={k: floor_ms / row[k]["ms"]
+                                   for k in ("other", "this")})
+        print(f"  {cap} rows: other {row['us_per_row']['other']:.4f}, this "
+              f"{row['us_per_row']['this']:.4f} us a row; per-SM floor "
+              f"{floor_row:.4f} us a row, {floor_ms:.4f} ms "
+              f"({100 * row['sm_floor_share']['this']:.1f} % of it)",
+              flush=True)
+        rows.append(row)
+        del buf, g
+        torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("other", help="directory of the other version's "
-                    "myers_sweep.cu, rle_walk.cu and common.cuh")
+                    "myers_sweep.cu, rle_walk.cu, nw_sweep.cu, "
+                    "sweep_scan.cuh and common.cuh")
     ap.add_argument("--json", help="also write the result rows here")
     args = ap.parse_args()
 
@@ -235,6 +307,7 @@ def main() -> int:
                   f"{row['ns_per_step_of_longest']:.1f} ns a step",
                   flush=True)
             rows.append(row)
+        rows += strip_sweeps(libs, rng, stream)
     line = json.dumps({"device": torch.cuda.get_device_name(0),
                        "rows": rows})
     if args.json:

@@ -4,9 +4,10 @@
 // (body _nw_band_kernel_t8), ::nw_band_batch_t8big (body
 // _nw_band_kernel_t8big) and ::nw_band_batch (body _nw_band_kernel, the
 // lane-major form the reference runs at W = 2048 and 4096), which compute
-// the same DP and differ only in how they fit TPU VMEM; one kernel,
-// templated on the band lanes per thread, covers every consensus tier and
-// every align tier of the scored route (W <= 4096).
+// the same DP and differ only in how they fit TPU VMEM; two kernels,
+// each templated on the band lanes per thread, cover every consensus tier
+// and every align tier of the scored route (W <= 4096): the warp kernel up
+// to W = 256, the strip kernel above.
 //
 // Geometry: band lane k of query row i is target column j = i + dlo + k,
 // dlo = n_cap - m_cap - W/2. Per row: substitution (PAD against a real base
@@ -40,19 +41,39 @@
 // warp's chain of dependent shuffles.
 //
 // W = 288 .. 4096 (K2's and K5's tiers and the align stage's scored
-// route): one block per item, one thread per band lane up to W = 1024,
-// two (lanes 2t, 2t+1) at W = 2048 and four (4t..4t+3) at W = 4096, so a
-// block never exceeds 1024 threads. The item's codes and deletion
-// bitmask sit in shared memory; gc is integrated per lane from the
-// bitmask (popcount once, then one add per row). The scan is
-// block_incl_max. Only each thread's first lane goes through shared
-// memory (the up move of the thread below reads it). What bounds it: two
-// block barriers and the ~log2(32) shuffle latency chain per row
-// (latency, not bandwidth: 2 bits of output per cell), so enough items
-// must be resident to fill the SMs; a 1024-thread block holds at most 64
-// registers per thread. At (40960, 4096) the codes and bitmask take
-// ~93 KB of shared memory, past the 48 KB default, so the launcher raises
-// the limit.
+// route): one block per item, made of warp strips. Warp w owns S = 32 LPT
+// contiguous band lanes (LPT = strip_lanes(W, B): 4, or 8 where that still
+// leaves 16 warps an SM; the last strip cut at W), each of its threads LPT
+// of them, so a strip's row is the warp kernel's row: the query codes and
+// the target columns in shared memory (a column as code | deletion cost
+// << 8), the column values sliding a lane a row in registers (each
+// thread's last lane reads its new column), the scan five shuffles and
+// one more. H is kept less gc, the scan's own space. Rows whose strip
+// lies inside columns 1 .. n_cap skip the edge tests and take each move
+// from the scan value and the diag/up comparison. The block barriers of
+// the design before (a block scan and an exchange barrier a row, ~60 % of
+// its time in the ablation) are gone: per row, warp w needs two integers,
+// the carry (the max of cand - gc over every lane left of its strip) from
+// warp w - 1, and warp w + 1's first-lane H of the row before, for the up
+// move of its last lane. Each warp publishes its pair into rings of
+// kSweepRing rows in shared memory, a slot being the row and the value in
+// one 64-bit word; a waiting warp polls the slot behind a __nanosleep
+// back-off. The hand-off is skewed so that the carry never waits for the
+// right neighbour: a thread's last lane leaves its up candidate out of the
+// scan (the lane to its right reaches every value it could give, see the
+// kernel) and takes it when the next row starts, so warp w reads warp
+// w + 1's H of row i - 2 at row i and runs at most two rows ahead of it.
+// Two rows of ring are then enough (a reader has always taken the slot a
+// writer reuses) and one is not. The only __syncthreads is the one after
+// staging the codes; the warps of a block are all resident, so the waits
+// cannot deadlock. Moves: every 16 rows a thread stores its LPT words as
+// 16-byte stores, a warp one contiguous 4 S-byte run. What bounds it: the
+// integer work of a cell at 64 INT32 lanes an SM, one item an SM below
+// B = 132; with few warps an SM, each warp's chain of dependent
+// instructions a row, the hand-off waits and the scan's shuffles among
+// them (benchmarks/strip_ab.py times the kernel without each).
+#include <type_traits>
+
 #include "sweep_scan.cuh"
 
 namespace {
@@ -241,141 +262,353 @@ nw_sweep_warp_kernel(const uint8_t* __restrict__ q4,
     if (k0 + u == n_cap - m_cap - dlo) score[b] = hp[u];
 }
 
-// LPT band lanes per thread: 1 for W <= 1024 (thread k owns lane k), 2 for
-// W = 2048 (thread t owns lanes 2t and 2t+1), 4 for W = 4096. Within a
-// thread the lanes' values live in registers; the scan runs a serial max
-// over the thread's lanes, then the warp scan over thread totals, then the
-// warp totals.
-template <int LPT>
-__global__ void __launch_bounds__(1024)
-nw_sweep_kernel(const uint8_t* __restrict__ q4,
-                const uint8_t* __restrict__ t4,
-                const uint8_t* __restrict__ dcb,
-                int32_t* __restrict__ moves,
-                int32_t* __restrict__ score, int m_cap, int n_cap, int W,
-                int match, int mismatch, int gap, int span) {
-  extern __shared__ int32_t smem[];
-  const int T = W / LPT;                               // threads
-  int32_t* hbuf = smem;                                // [2][T] lane LPT*t
-  int32_t* wtot = hbuf + 2 * T;                        // [32]
-  uint32_t* bits = reinterpret_cast<uint32_t*>(wtot + 32);  // [n_cap/32]
-  uint8_t* qs = reinterpret_cast<uint8_t*>(bits + n_cap / 32);  // [m_cap]
-  uint8_t* ts = qs + m_cap;                            // [n_cap]
+constexpr int kSweepRing = 2;  // rows in each warp's hand-off rings;
+                                // geometry.SWEEP_RING
+static_assert((kSweepRing & (kSweepRing - 1)) == 0, "a power of two");
 
-  const int b = blockIdx.x;
+// One hand-off slot: the row in the high word, the value in the low, one
+// 64-bit access, so that a reader never sees a row with another row's
+// value and needs no fence.
+__device__ __forceinline__ void publish(unsigned long long* slot, int row,
+                                        int v) {
+  *reinterpret_cast<volatile unsigned long long*>(slot) =
+      (static_cast<unsigned long long>(row) << 32) | static_cast<uint32_t>(v);
+}
+
+// The value of `slot` once its row is `row` or later, read by the whole
+// warp; a warp that finds it not yet written sleeps (a back-off up to
+// 256 ns), so that it takes no issue slots from the working warps.
+__device__ __forceinline__ int await_row(const unsigned long long* slot,
+                                         int row) {
+  const volatile unsigned long long* p = slot;
+  unsigned long long v = *p;
+  unsigned ns = 8;
+  while (!__all_sync(kFull, static_cast<int>(v >> 32) >= row)) {
+    __nanosleep(ns);
+    ns = min(2 * ns, 256u);
+    v = *p;
+  }
+  return static_cast<int>(static_cast<uint32_t>(v));
+}
+
+// In place, a[u] becomes the max of a over the warp's lanes at or below
+// lane LPT*lane + u (thread t owns lanes LPT*t .. LPT*t + LPT - 1): a
+// serial max over the thread's lanes, a shuffle scan of the thread
+// totals and the exclusive prefix by one more shuffle. A shuffle up
+// gives a lane below its offset its own value, which the max leaves as it
+// is, so the steps need no lane test.
+template <int LPT>
+__device__ __forceinline__ void strip_incl_max(int (&a)[LPT], int lane) {
+#pragma unroll
+  for (int u = 1; u < LPT; ++u) a[u] = max(a[u], a[u - 1]);
+  int v = a[LPT - 1];
+#pragma unroll
+  for (int s = 1; s < 32; s <<= 1) v = max(v, __shfl_up_sync(kFull, v, s));
+  const int excl = __shfl_up_sync(kFull, v, 1);
+  if (lane) {
+#pragma unroll
+    for (int u = 0; u < LPT; ++u) a[u] = max(a[u], excl);
+  }
+}
+
+// target column value of the strip kernel: code | deletion cost << 8
+// (gap or 0), PAD (and no deletion cost) outside the target
+__device__ __forceinline__ int col32_at(const int* cs, int j, int n_cap) {
+  return (j >= 0 && j < n_cap) ? cs[j] : kPad;
+}
+
+// W = 288 .. 4096: one block per item, warp w owns the strip of band
+// lanes w*S .. w*S + S - 1 (S = 32 * LPT, the last strip cut at W), thread
+// t of it lanes w*S + LPT*t .. + LPT - 1 (see the note at the top).
+// Shared memory: the warps' hand-off rings ([warp][carries, first-lane
+// H][kSweepRing] slots), the target column values (4 n_cap bytes), the
+// query codes (m_cap bytes).
+//
+// H is kept less gc (hg = H - gc[j], the scan's own space): the scan value
+// of a lane is then its best candidate, a lane's H is its scan result, and
+// the diag candidate subtracts the deletion cost of the column it crosses;
+// gc itself is carried for each thread's first lane only and summed over
+// the thread's columns where a row reaches the matrix's edges.
+//
+// The last lane L of each thread takes its up candidate when the next row
+// starts, and its scan value leaves it out. The scan loses nothing: lane
+// L + 1 (a first lane, inside the band wherever L's candidate counts)
+// reaches the same cell by its own up candidate, left then up at row i - 1
+// costing what up then left does at row i, and the left chain of row i - 1
+// makes its H there at least H(i-1, j_L) plus the deletion cost. So the
+// carry to the next warp never waits for that warp, and the right
+// neighbour's first-lane H is read one row late.
+template <int LPT>
+__global__ void __launch_bounds__(4096 / LPT > 1024 ? 1024 : 4096 / LPT)
+nw_sweep_strip_kernel(const uint8_t* __restrict__ q4,
+                      const uint8_t* __restrict__ t4,
+                      const uint8_t* __restrict__ dcb,
+                      int32_t* __restrict__ moves,
+                      int32_t* __restrict__ score, int m_cap, int n_cap,
+                      int W, int match, int mismatch, int gap, int span) {
+  extern __shared__ uint4 ssmem[];
+  static_assert(LPT >= 2, "a thread's first lane is never its last");
+  constexpr int S = 32 * LPT;
+  constexpr int R = kSweepRing;
+  const int T = blockDim.x;
+  const int nw = T >> 5;
   const int t = threadIdx.x;
-  const int lane = t & 31;
   const int warp = t >> 5;
-  const int k0 = LPT * t;
+  const int lane = t & 31;
+  const int b = blockIdx.x;
+  unsigned long long* ring = reinterpret_cast<unsigned long long*>(ssmem);
+  int* cs = reinterpret_cast<int*>(ring + 2 * R * nw);
+  uint8_t* qs = reinterpret_cast<uint8_t*>(cs + n_cap);
+  const int k0 = warp * S + LPT * lane;
   const int dlo = n_cap - m_cap - W / 2;
 
+  // codes into shared memory, by the whole block: the query codes 16 bytes
+  // (32 codes) a load where the row allows it, 8 bytes otherwise; the
+  // target columns 32 a thread, each code | deletion cost << 8
   const uint8_t* qrow = q4 + static_cast<size_t>(b) * (m_cap / 2);
-  const uint8_t* trow = t4 + static_cast<size_t>(b) * (n_cap / 2);
-  const uint8_t* drow = dcb + static_cast<size_t>(b) * (n_cap / 8);
-  for (int x = t; x < m_cap / 2; x += T) {
-    uint8_t v = qrow[x];
-    qs[2 * x] = v & 15;
-    qs[2 * x + 1] = v >> 4;
+  if (m_cap % 32 == 0) {
+    for (int x = t; x < m_cap / 32; x += T) {
+      const uint4 v = reinterpret_cast<const uint4*>(qrow)[x];
+      const uint2 a = unpack8(v.x), c = unpack8(v.y), d = unpack8(v.z),
+                  e = unpack8(v.w);
+      uint4* dst = reinterpret_cast<uint4*>(qs + 32 * x);
+      dst[0] = make_uint4(a.x, a.y, c.x, c.y);
+      dst[1] = make_uint4(d.x, d.y, e.x, e.y);
+    }
+  } else {
+    for (int x = t; x < m_cap / 16; x += T) {
+      const uint2 v = reinterpret_cast<const uint2*>(qrow)[x];
+      const uint2 a = unpack8(v.x), c = unpack8(v.y);
+      *reinterpret_cast<uint4*>(qs + 16 * x) = make_uint4(a.x, a.y, c.x, c.y);
+    }
   }
-  for (int x = t; x < n_cap / 2; x += T) {
-    uint8_t v = trow[x];
-    ts[2 * x] = v & 15;
-    ts[2 * x + 1] = v >> 4;
-  }
+  const uint4* trow =
+      reinterpret_cast<const uint4*>(t4 + static_cast<size_t>(b) * (n_cap / 2));
+  const uint32_t* bits = reinterpret_cast<const uint32_t*>(
+      dcb + static_cast<size_t>(b) * (n_cap / 8));
   for (int x = t; x < n_cap / 32; x += T) {
-    const uint8_t* d = drow + 4 * x;
-    bits[x] = static_cast<uint32_t>(d[0]) | (static_cast<uint32_t>(d[1]) << 8)
-              | (static_cast<uint32_t>(d[2]) << 16)
-              | (static_cast<uint32_t>(d[3]) << 24);
+    const uint4 v = trow[x];
+    const uint32_t bw = bits[x];  // columns 32x .. 32x + 31
+    const uint32_t w4[4] = {v.x, v.y, v.z, v.w};
+    int4* dst = reinterpret_cast<int4*>(cs + 32 * x);
+#pragma unroll
+    for (int y = 0; y < 8; ++y) {  // columns 32x + 4y .. + 3
+      int col[4];
+#pragma unroll
+      for (int z = 0; z < 4; ++z) {
+        const int jj = 4 * y + z;
+        col[z] = static_cast<int>((w4[jj >> 3] >> (4 * (jj & 7))) & 15u) |
+                 (((bw >> jj) & 1u) ? gap * 256 : 0);
+      }
+      dst[y] = make_int4(col[0], col[1], col[2], col[3]);
+    }
   }
-  __syncthreads();
 
-  // row 0: H[0][j] = gc[j] inside the matrix, NEG outside
-  int hp[LPT], gcj[LPT];
+  // row 0: hg = 0 inside the matrix, NEG - gc outside; c[u] is the column
+  // value at j - 1 of row 1; gc0 is gc at the thread's first lane
+  int hp[LPT], c[LPT];
   uint32_t pack[LPT];
-  bool fill_lane[LPT];
+  int gc0 = gc_at(bits, dlo + k0, n_cap, gap);
 #pragma unroll
   for (int u = 0; u < LPT; ++u) {
     const int jz = dlo + k0 + u;
-    gcj[u] = gc_at(bits, jz, n_cap, gap);
-    hp[u] = (jz >= 0 && jz <= n_cap) ? gcj[u] : kNeg;
+    hp[u] = (jz >= 0 && jz <= n_cap) ? 0 : kNeg - gc_at(bits, jz, n_cap, gap);
     pack[u] = 0;
-    fill_lane[u] = k0 + u <= span - 2;
   }
-  hbuf[t] = hp[0];
-  int32_t* mrow = moves + static_cast<size_t>(b) * (m_cap / 16) * W;
-  __syncthreads();
+  // the scan's fill: every lane but W - 1 (a thread's last) where W is a
+  // power of two takes it (k <= span - 2)
+  const int fill_last = k0 + LPT - 1 <= span - 2 ? kScanFill : INT_MIN;
+  // this warp's rings: carries (read by warp + 1), first-lane H (read by
+  // warp - 1); every slot at row 0, the first-lane H of row 0 published
+  unsigned long long* carry_out = ring + 2 * R * warp;
+  unsigned long long* first_out = carry_out + R;
+  const unsigned long long* carry_in = carry_out - 2 * R;  // warp - 1's
+  const unsigned long long* first_in = first_out + 2 * R;  // warp + 1's
+  if (lane < 2 * R) carry_out[lane] = 0;
+  __syncwarp();
+  if (lane == 0) publish(first_out, 0, hp[0]);
+  __syncthreads();  // the codes and the rings; the row loop has no other
+#pragma unroll
+  for (int u = 0; u < LPT; ++u) c[u] = col32_at(cs, dlo + k0 + u, n_cap);
 
-  for (int i = 1; i <= m_cap; ++i) {
-    const int cur = (i - 1) & 1;
+  const bool has_left = warp > 0;
+  const bool has_right = warp + 1 < nw;
+  const bool band_end = k0 + LPT == W;  // the thread holds lane W - 1
+  const bool live = k0 < W;             // not past the band's end
+  int32_t* mrow = moves + static_cast<size_t>(b) * (m_cap / 16) * W + k0;
+  // gc at the thread's lanes of the current row (where a row reaches the
+  // matrix's edges)
+  auto gc_lanes = [&](int (&g)[LPT]) {
+    g[0] = gc0;
+#pragma unroll
+    for (int u = 1; u < LPT; ++u) g[u] = g[u - 1] + (c[u] >> 8);
+  };
+  // the thread's last lane of the row before: its scan value (carry and
+  // fill in, its up candidate not), its diag candidate, the next thread's
+  // first-lane H of the row before that, and whether the strip had lanes
+  // outside columns 1 .. n_cap in that row
+  int a_last = 0, d_last = 0, r_last = 0;
+  bool edge_last = true;
+
+  // row r's last lane takes its up candidate `right` + gap, its H and its
+  // move (c and gc0 still row r's); the thread's words go out once row r
+  // ends a block of 16 rows
+  auto finish_last = [&](int r, int right, auto edge) {
+    constexpr bool kEdge = decltype(edge)::value;
+    const int up = right + gap;
+    int h, mv;
+    if constexpr (kEdge) {
+      const int j = r + dlo + k0 + LPT - 1;
+      int g[LPT];
+      gc_lanes(g);
+      h = (j >= 1 && j <= n_cap) ? max(a_last, up) : a_last;
+      if (j < 0 || j > n_cap) h = kNeg - g[LPT - 1];
+      mv = (h == d_last) ? 0 : ((h == up) ? 1 : 2);
+      if (j < 1 || j > n_cap) mv = 3;
+    } else {
+      h = max(a_last, up);
+      mv = (h == d_last) ? 0 : ((h == up) ? 1 : 2);
+    }
+    const int p = (r - 1) & 15;
+    pack[LPT - 1] |= static_cast<uint32_t>(mv) << (2 * p);
+    hp[LPT - 1] = h;
+    if (p == 15) {
+      if (live) store_words<LPT>(mrow + ((r - 1) >> 4) * W, pack);
+#pragma unroll
+      for (int u = 0; u < LPT; ++u) pack[u] = 0;
+    }
+  };
+  // the right neighbour's first-lane H of row r: the next thread's by a
+  // shuffle a row before, warp + 1's from its ring; NEG past lane W - 1
+  auto right_of = [&](int r) {
+    const int hr = has_right ? await_row(first_in + (r & (R - 1)), r) : kNeg;
+    return band_end ? kNeg : (lane == 31 ? hr : r_last);
+  };
+
+  // one row of the strip; `edge` (std::true_type) where some lane of the
+  // strip lies outside columns 1 .. n_cap, so that the rows in between
+  // skip the tests of column 0 and of the matrix's edges
+  auto row = [&](int i, auto edge) {
+    constexpr bool kEdge = decltype(edge)::value;
     const int qc = qs[i - 1];
-    int diag_c[LPT], up_c[LPT], a[LPT];
-    bool valid[LPT], inside[LPT];
+    const int other = qc == kPad ? kNeg : mismatch;  // tc != qc, tc real
+    const int jb = i + dlo + k0;  // column of the thread's first lane
+    if (i > 1) {
+      // the window slides one column a row: lane k takes lane k + 1's
+      // column value of the row before, the last lane reads its own
+#pragma unroll
+      for (int u = 0; u + 1 < LPT; ++u) c[u] = c[u + 1];
+      c[LPT - 1] = kEdge ? col32_at(cs, jb + LPT - 2, n_cap) : cs[jb + LPT - 2];
+    }
+    gc0 += c[0] >> 8;
+    // the next thread's first lane of the previous row: the up candidate
+    // of this thread's last lane, taken when the next row starts
+    const int above_last = __shfl_down_sync(kFull, hp[0], 1);
+    int g[LPT];
+    if constexpr (kEdge) gc_lanes(g);
+    // per lane: diag and up candidates and the scan value, the best of
+    // them; inside the matrix the move needs only the scan value and which
+    // of diag and up won
+    int diag_c[LPT], up_c[LPT], a[LPT], own[LPT], up_won[LPT];
 #pragma unroll
     for (int u = 0; u < LPT; ++u) {
-      const int j = i + dlo + k0 + u;
-      const int jm1 = j - 1;
-      const bool in_t = jm1 >= 0 && jm1 < n_cap;
-      if (in_t && ((bits[jm1 >> 5] >> (jm1 & 31)) & 1u)) gcj[u] += gap;
-      valid[u] = j >= 1 && j <= n_cap;
-      const bool jzero = j == 0;
-      inside[u] = valid[u] || jzero;
-      const int tc = in_t ? ts[jm1] : kPad;
-      const int sub = ((tc == kPad) != (qc == kPad))
-                          ? kNeg : (tc == qc ? match : mismatch);
-      diag_c[u] = hp[u] + sub;
-      // lane k + 1 of the previous row: this thread's next lane, or the
-      // next thread's first lane from shared memory
-      const int above = (u + 1 < LPT) ? hp[(u + 1) % LPT]
-                        : ((k0 + LPT == W) ? kNeg : hbuf[cur * T + t + 1]);
-      up_c[u] = above + gap;
-      int cand = max(diag_c[u], up_c[u]);
-      if (jzero) cand = i * gap;
-      if (!inside[u]) cand = kNeg;
-      a[u] = cand - gcj[u];
+      const int tc = c[u] & 15;
+      // PAD against a real base NEG, PAD against PAD a match
+      const int sub = tc == qc ? match : (tc == kPad ? kNeg : other);
+      diag_c[u] = hp[u] + sub - (c[u] >> 8);
+      int cand = diag_c[u];
+      if (u + 1 < LPT) {
+        up_c[u] = hp[u + 1] + gap;
+        up_won[u] = diag_c[u] < up_c[u];
+        cand = max(cand, up_c[u]);
+      }
+      if constexpr (kEdge) {
+        const int j = jb + u;
+        if (j == 0) cand = i * gap;
+        if (j < 0 || j > n_cap) cand = kNeg - g[u];
+      }
+      a[u] = own[u] = cand;
     }
-    block_incl_max<LPT>(a, lane, warp, wtot);
+    strip_incl_max<LPT>(a, lane);
 
+    // the carry: the max over every lane left of the strip
+    const int carry = has_left ? await_row(carry_in + (i & (R - 1)), i)
+                               : INT_MIN;
+    if (lane == 31 && has_right)
+      publish(carry_out + (i & (R - 1)), i, max(carry, a[LPT - 1]));
     const int p = (i - 1) & 15;
 #pragma unroll
-    for (int u = 0; u < LPT; ++u) {
-      if (fill_lane[u]) a[u] = max(a[u], kScanFill);
-      int h = a[u] + gcj[u];
-      if (!inside[u]) h = kNeg;
-      int mv = (h == diag_c[u]) ? 0 : ((h == up_c[u]) ? 1 : 2);
-      if (!valid[u]) mv = 3;
+    for (int u = 0; u + 1 < LPT; ++u) {
+      int h = max(max(a[u], carry), kScanFill);
+      int mv;
+      if constexpr (kEdge) {
+        const int j = jb + u;
+        if (j < 0 || j > n_cap) h = kNeg - g[u];
+        mv = (h == diag_c[u]) ? 0 : ((h == up_c[u]) ? 1 : 2);
+        if (j < 1 || j > n_cap) mv = 3;
+      } else {
+        // h > own: the deletion chain won (h above both candidates)
+        mv = h != own[u] ? 2 : up_won[u];
+      }
       pack[u] |= static_cast<uint32_t>(mv) << (2 * p);
       hp[u] = h;
     }
-    if (p == 15) {
-#pragma unroll
-      for (int u = 0; u < LPT; ++u) {
-        mrow[((i - 1) >> 4) * W + k0 + u] = static_cast<int32_t>(pack[u]);
-        pack[u] = 0;
-      }
+    a_last = max(max(a[LPT - 1], carry), fill_last);
+    d_last = diag_c[LPT - 1];
+    r_last = above_last;
+    edge_last = kEdge;
+    if (lane == 0 && has_left) publish(first_out + (i & (R - 1)), i, hp[0]);
+  };
+
+  for (int i = 1; i <= m_cap; ++i) {
+    if (i > 1) {
+      const int right = right_of(i - 2);
+      if (edge_last)
+        finish_last(i - 1, right, std::true_type{});
+      else
+        finish_last(i - 1, right, std::false_type{});
     }
-    hbuf[(cur ^ 1) * T + t] = hp[0];
-    __syncthreads();
+    const int jw = i + dlo + warp * S;  // column of the strip's first lane
+    if (jw >= 1 && jw + S - 1 <= n_cap)
+      row(i, std::false_type{});
+    else
+      row(i, std::true_type{});
   }
+  finish_last(m_cap, right_of(m_cap - 1), std::true_type{});
+  // H at the end lane: hg plus gc at its column, n_cap
 #pragma unroll
   for (int u = 0; u < LPT; ++u)
-    if (k0 + u == n_cap - m_cap - dlo) score[b] = hp[u];
+    if (k0 + u == n_cap - m_cap - dlo)
+      score[b] = hp[u] + gc_at(bits, n_cap, n_cap, gap);
 }
 
 }  // namespace
 
-// band lanes per thread of the block kernel at band width W
-static int lanes_per_thread(int W) {
-  return W <= 1024 ? 1 : (W <= 2048 ? 2 : 4);
+// band lanes per thread of the strip kernel at band width W > 256 and B
+// items (geometry.sweep_lanes): eight where W is a multiple of 256 and
+// the strips of eight still put 16 warps or more on each of the H100's 132
+// SMs (the items of an SM one block each), where fewer instructions a
+// cell win; else four, where more warps an item hide the row's latency
+// (timed on the card, PERF.md)
+static int strip_lanes(int W, int B) {
+  const int items_per_sm = (B + 131) / 132;
+  return (W % 256 == 0 && (W / 256) * items_per_sm >= 16) ? 8 : 4;
+}
+
+// warps per item of the strip kernel: strips of 32 * LPT lanes, the last
+// one cut at W
+static int strip_warps(int W, int B) {
+  const int S = 32 * strip_lanes(W, B);
+  return (W + S - 1) / S;
 }
 
 // shared bytes per block: the warp kernel's kSweepWarps slices of codes
-// (W <= 256), or the block kernel's exchange, warp totals, bitmask and
-// codes (geometry.sweep_smem)
-extern "C" size_t rtt_nw_sweep_smem(int m_cap, int n_cap, int W) {
+// (W <= 256), or the strip kernel's hand-off rings and codes
+// (geometry.sweep_launch)
+extern "C" size_t rtt_nw_sweep_smem(int m_cap, int n_cap, int W, int B) {
   if (W <= 256) return static_cast<size_t>(kSweepWarps) * (m_cap + n_cap);
-  const int T = W / lanes_per_thread(W);
-  return static_cast<size_t>(2 * T + 32 + n_cap / 32) * 4 + m_cap + n_cap;
+  return static_cast<size_t>(16 * kSweepRing) * strip_warps(W, B) +
+         4 * n_cap + m_cap;
 }
 
 template <typename K>
@@ -392,9 +625,9 @@ static int launch_sweep(const uint8_t* q4, const uint8_t* t4,
                         int B, int m_cap, int n_cap, int W, int match,
                         int mismatch, int gap, int span,
                         cudaStream_t stream) {
-  const size_t smem = rtt_nw_sweep_smem(m_cap, n_cap, W);
-  if (int e = raise_smem(nw_sweep_kernel<LPT>, smem)) return e;
-  nw_sweep_kernel<LPT><<<B, W / LPT, smem, stream>>>(
+  const size_t smem = rtt_nw_sweep_smem(m_cap, n_cap, W, B);
+  if (int e = raise_smem(nw_sweep_strip_kernel<LPT>, smem)) return e;
+  nw_sweep_strip_kernel<LPT><<<B, 32 * strip_warps(W, B), smem, stream>>>(
       q4, t4, dcb, moves, score, m_cap, n_cap, W, match, mismatch, gap, span);
   return RTT_LAUNCH_STATUS();
 }
@@ -405,7 +638,7 @@ static int launch_sweep_warp(const uint8_t* q4, const uint8_t* t4,
                              int32_t* score, int B, int m_cap, int n_cap,
                              int match, int mismatch, int gap, int span,
                              cudaStream_t stream) {
-  const size_t smem = rtt_nw_sweep_smem(m_cap, n_cap, 32 * LPT);
+  const size_t smem = rtt_nw_sweep_smem(m_cap, n_cap, 32 * LPT, B);
   if (int e = raise_smem(nw_sweep_warp_kernel<LPT>, smem)) return e;
   const int blocks = (B + kSweepWarps - 1) / kSweepWarps;
   nw_sweep_warp_kernel<LPT><<<blocks, 32 * kSweepWarps, smem, stream>>>(
@@ -416,8 +649,9 @@ static int launch_sweep_warp(const uint8_t* q4, const uint8_t* t4,
 
 // q4 (B, m_cap/2) u8, t4 (B, n_cap/2) u8, dcb (B, n_cap/8) u8 ->
 // moves (B, m_cap/16, W) i32, score (B,) i32. Requires W a multiple of
-// 32 * lanes_per_thread(W) and W <= 4096; m_cap % 16 == 0,
-// n_cap % 32 == 0, dlo <= 0. W <= 256 always runs the warp kernel.
+// 32 up to 4096 (the bindings take multiples of 64 above 1024 and of 128
+// above 2048), m_cap % 16 == 0, n_cap % 32 == 0, dlo <= 0. W <= 256
+// always runs the warp kernel, wider bands the strip kernel.
 extern "C" int rtt_nw_sweep(const uint8_t* q4, const uint8_t* t4,
                             const uint8_t* dcb, int32_t* moves,
                             int32_t* score, int B, int m_cap, int n_cap,
@@ -443,16 +677,15 @@ extern "C" int rtt_nw_sweep(const uint8_t* q4, const uint8_t* t4,
     }
   }
 #undef RTT_WARP_CASE
-  switch (lanes_per_thread(W)) {
-    case 1:
-      return launch_sweep<1>(q4, t4, dcb, moves, score, B, m_cap, n_cap, W,
-                             match, mismatch, gap, span, stream);
-    case 2:
-      return launch_sweep<2>(q4, t4, dcb, moves, score, B, m_cap, n_cap, W,
-                             match, mismatch, gap, span, stream);
-    default:
+  switch (strip_lanes(W, B)) {
+    case 4:
       return launch_sweep<4>(q4, t4, dcb, moves, score, B, m_cap, n_cap, W,
                              match, mismatch, gap, span, stream);
+    case 8:
+      return launch_sweep<8>(q4, t4, dcb, moves, score, B, m_cap, n_cap, W,
+                             match, mismatch, gap, span, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 

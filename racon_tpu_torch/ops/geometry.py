@@ -118,33 +118,48 @@ def peq_words(n_cap: int, w_band: int) -> int:
 
 
 # Launch geometry of the kernels built around one warp per item (and of
-# the RLE walk, a warp of items); the constants mirror kSweepWarps
-# (kernels/csrc/nw_sweep.cu), kSweep16Warps (kernels/csrc/nw_sweep16.cu),
-# kWalkWarps, kWalkRows (kernels/csrc/myers_walk.cu) and kWalkItems,
-# kMaxStage (kernels/csrc/rle_walk.cu).
+# the RLE walk, a warp of items); the constants mirror kSweepWarps,
+# kSweepRing (kernels/csrc/nw_sweep.cu), kSweep16Warps
+# (kernels/csrc/nw_sweep16.cu), kWalkWarps, kWalkRows
+# (kernels/csrc/myers_walk.cu) and kWalkItems, kMaxStage
+# (kernels/csrc/rle_walk.cu).
 SWEEP_WARP_MAX_W = 256    # widest band the warp-per-item sweep takes
 SWEEP_WARPS = 4           # items (warps) per block of the warp sweep
+SWEEP_RING = 2            # rows in each strip's hand-off rings
+SWEEP_SMS = 132           # SMs of the H100 the strip kernel's rule counts
 MYERS_WALK_WARPS = 2      # items (warps) per block of the Myers walk
 MYERS_WALK_ROWS = 16      # query rows per cp.async group of the walk
 RLE_WALK_ITEMS = 32       # items (threads) per block of the RLE walk
 SMEM_BLOCK_MAX = 227 * 1024  # shared bytes one block may use (H100)
 
 
-def sweep_lanes(w_band: int) -> int:
-    """Band lanes each thread of the sweep owns outside the warp kernel:
-    one up to W = 1024, two up to 2048, four up to 4096, so a block never
-    exceeds 1024 threads. (The warp kernel, W <= 256, gives each thread
-    W / 32 lanes.)"""
-    return 1 if w_band <= 1024 else (2 if w_band <= 2048 else 4)
+def sweep_lanes(w_band: int, B: int) -> int:
+    """Band lanes each thread of the strip kernel owns at band width W >
+    256 and B items (strip_lanes in kernels/csrc/nw_sweep.cu): eight where
+    W is a multiple of 256 and strips of eight still put 16 warps or more
+    on each of the H100's SWEEP_SMS SMs (an SM's items one block each),
+    else four; timed on the card at every K2 and K5 shape (PERF.md). A
+    warp's strip is 32 times as many lanes. (The warp kernel, W <= 256,
+    gives each thread W / 32 lanes.)"""
+    items_per_sm = -(-B // SWEEP_SMS)
+    return 8 if w_band % 256 == 0 and w_band // 256 * items_per_sm >= 16 \
+        else 4
+
+
+def sweep_warps(w_band: int, B: int) -> int:
+    """Warps (strips) per item of the strip kernel: strips of
+    32 * sweep_lanes lanes, the last one cut at W."""
+    return -(-w_band // (32 * sweep_lanes(w_band, B)))
 
 
 def sweep_kernel(w_band: int, dp16: bool = False) -> str:
     """Which sweep kernel a band width launches, by its launch counter:
-    "nw_sweep" (the warp kernel, K1's tiers), "nw_sweep_block" (one block
-    per item, one lane per thread: K2's tiers and the align stage's scored
-    route up to W = 1024) or "nw_sweep_wide" (two or four lanes per
-    thread: K5). With dp16 (H in int16, sweep_dp16) up to W = 1024, their
-    int16 forms "nw_sweep16" and "nw_sweep_block16"; K5 has none."""
+    "nw_sweep" (the warp kernel, K1's tiers), "nw_sweep_block" (the strip
+    kernel, one block of warp strips per item, at K2's tiers and the align
+    stage's scored route up to W = 1024) or "nw_sweep_wide" (the strip
+    kernel at W = 2048 and 4096: K5). With dp16 (H in int16, sweep_dp16)
+    up to W = 1024, their int16 forms "nw_sweep16" and "nw_sweep_block16";
+    K5 has none."""
     if w_band > 1024:
         return "nw_sweep_wide"
     name = "nw_sweep" if w_band <= SWEEP_WARP_MAX_W else "nw_sweep_block"
@@ -182,11 +197,13 @@ def sweep_launch(B: int, m_cap: int, n_cap: int, w_band: int,
     launch, as rtt_nw_sweep / rtt_nw_sweep_smem and rtt_nw_sweep16 /
     rtt_nw_sweep16_smem compute them: the warp kernel holds SWEEP_WARPS
     items a block, each warp its item's code bytes (m_cap + n_cap); the
-    block kernel one item, with its lane exchange, warp totals, deletion
-    bitmask and code bytes. The int16 warp kernel holds 32 * SWEEP_WARPS /
-    sweep16_tpi items a block, each its query code bytes and its target
-    columns as 16-bit halves (m_cap + 2 n_cap); the int16 block kernel
-    one item, with its pair exchange, warp totals and codes."""
+    strip kernel one item, sweep_warps warps, with each warp's two
+    hand-off rings of SWEEP_RING 8-byte slots, the query code bytes and
+    the target columns as 32-bit values (code | deletion cost << 8). The
+    int16 warp kernel holds 32 * SWEEP_WARPS / sweep16_tpi items a block,
+    each its query code bytes and its target columns as 16-bit halves
+    (m_cap + 2 n_cap); the int16 block kernel one item, with its pair
+    exchange, warp totals and codes."""
     kernel = sweep_kernel(w_band, dp16)
     if kernel == "nw_sweep":
         return (-(-B // SWEEP_WARPS), 32 * SWEEP_WARPS,
@@ -198,8 +215,8 @@ def sweep_launch(B: int, m_cap: int, n_cap: int, w_band: int,
     if kernel == "nw_sweep_block16":
         threads = sweep16_threads(w_band)
         return B, threads, (2 * threads + 32) * 4 + m_cap + 2 * n_cap
-    threads = w_band // sweep_lanes(w_band)
-    return B, threads, (2 * threads + 32 + n_cap // 32) * 4 + m_cap + n_cap
+    warps = sweep_warps(w_band, B)
+    return B, 32 * warps, 16 * SWEEP_RING * warps + m_cap + 4 * n_cap
 
 
 def myers_walk_ring(w_band: int) -> int:
@@ -250,12 +267,12 @@ def rle_walk_launch(B: int, max_events: int) -> tuple[int, int, int]:
 
 
 def sweep_fits(m_cap: int, n_cap: int, w_band: int) -> bool:
-    """Shapes the scored sweep kernel takes: W a multiple of 32 up to 1024
-    (one lane per thread), of 64 up to 2048 or of 128 up to 4096 (two or
-    four lanes per thread, the reference's lane-major kernel,
-    nw_kernel.py:186), and the t8 regime dlo <= 0. Wider bands are
-    refused."""
-    return (w_band % (32 * sweep_lanes(w_band)) == 0 and w_band <= 4096
+    """Shapes the scored sweep takes (the checks of rtt_nw_sweep's
+    bindings): W a multiple of 32 up to 1024, of 64 up to 2048 or of 128
+    up to 4096 (the reference's lane-major kernel, nw_kernel.py:186), and
+    the t8 regime dlo <= 0. Wider bands are refused."""
+    step = 32 if w_band <= 1024 else (64 if w_band <= 2048 else 128)
+    return (w_band % step == 0 and w_band <= 4096
             and m_cap % 16 == 0 and n_cap % 32 == 0
             and band_dlo(m_cap, n_cap, w_band) <= 0)
 

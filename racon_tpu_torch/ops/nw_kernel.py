@@ -51,8 +51,8 @@ from .geometry import (GROUP, NEG, OP_STREAM_SKIP, PAD_CODE, PACK,
                        REC_DIAG, REC_UP, RLE_LEFT, RLE_SKIP, RLE_UP,
                        SCAN_FILL, band_dlo, dp_consts, rle_events,
                        rows_payload_width, scan_span, sweep_dp16,
-                       sweep_fits, sweep_kernel, sweep_lanes,
-                       sweep_t_fits, walk_steps)
+                       sweep_fits, sweep_kernel, sweep_t_fits,
+                       walk_steps)
 
 
 def _device_kind(t: torch.Tensor) -> str:
@@ -73,10 +73,10 @@ def nw_sweep(q4, t4, dcb, *, m_cap, n_cap, w_band, match, mismatch, gap):
     """q4 (B, m_cap//2), t4 (B, n_cap//2), dcb (B, n_cap//8) uint8 ->
     (moves (B, m_cap//16, W) int32, score (B,) int32). Replaces the TPU
     kernels nw_band_batch_t8 (W <= 256: one warp per item, launches
-    counted as "nw_sweep"), nw_band_batch_t8big (W = 288 .. 1024: one
-    block per item, "nw_sweep_block") and nw_band_batch (W = 2048 and
-    4096, two or four band lanes per thread, "nw_sweep_wide"); see
-    geometry.sweep_kernel. Where geometry.sweep_dp16 holds
+    counted as "nw_sweep"), nw_band_batch_t8big (W = 288 .. 1024,
+    "nw_sweep_block") and nw_band_batch (W = 2048 and 4096,
+    "nw_sweep_wide"), the last two by the strip kernel, one block of warp
+    strips per item; see geometry.sweep_kernel and sweep_launch. Where geometry.sweep_dp16 holds
     (RACON_TPU_DP16=1 and the int16 gate), H runs in int16, as the
     reference's t8 and t8big do there: kernels/csrc/nw_sweep16.cu's warp
     or block kernel ("nw_sweep16", "nw_sweep_block16"), equal bit for bit
@@ -539,7 +539,7 @@ def walk_fmt(w_band: int) -> str:
     the reference's transposed sweeps run (W <= 1024), "rows" or "rle" as
     RACON_TPU_WALK says (read at call time), and "rle" for "auto" or any
     other value."""
-    if sweep_lanes(w_band) != 1:
+    if w_band > 1024:
         return "packed2"
     forced = os.environ.get("RACON_TPU_WALK", "auto")
     return forced if forced in ("rows", "rle") else "rle"

@@ -77,6 +77,33 @@ def test_sweep_and_rle_walk_match_plain(gpu, cap, w, B):
 
 
 @pytest.mark.parametrize("cap,w,B,scores", [
+    (1280, 384, 97, (5, -4, -8)), (1024, 288, 41, (5, -4, -8)),
+    (2560, 1024, 33, (0, -1, -1)), (2560, 1024, 31, (3, -5, -4)),
+    (5120, 2048, 13, (5, -4, -8)), (10240, 4096, 5, (0, -1, -1))])
+def test_strip_sweep_matches_plain(gpu, cap, w, B, scores):
+    """The strip kernel (W > 256) on ragged batches, byte for byte against
+    the plain version, with _packed's all-PAD and out-of-band items: W =
+    384 (three strips), 288 (its last strip cut to one thread in four),
+    1024, 2048 and 4096; the align scores with every deletion bit set.
+    Each launch counts once, as nw_sweep_block or nw_sweep_wide."""
+    q4, t4, dcb, m, n = _packed(cap + w + 3, B, cap, w // 2)
+    if scores == (0, -1, -1):
+        dcb[:] = 0xFF
+    geo = dict(m_cap=cap, n_cap=cap, w_band=w)
+    sc = dict(zip(("match", "mismatch", "gap"), scores))
+    g = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap, device=gpu)
+    c = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap, device="cpu")
+    sweep = sweep_kernel(w)
+    assert sweep == ("nw_sweep_block" if w <= 1024 else "nw_sweep_wide")
+    before = dict(LAUNCHES)
+    moves, score = nk.nw_sweep(g.q4, g.t4, g.dcb, **geo, **sc)
+    torch.cuda.synchronize()
+    assert LAUNCHES[sweep] == before[sweep] + 1
+    pm, ps = nk.nw_sweep_plain(c.q4, c.t4, c.dcb, **geo, **sc)
+    assert torch.equal(moves.cpu(), pm) and torch.equal(score.cpu(), ps)
+
+
+@pytest.mark.parametrize("cap,w,B,scores", [
     (256, 128, 4097, (5, -4, -8)), (640, 128, 4097, (5, -4, -8)),
     (256, 96, 130, (5, -4, -8)), (320, 160, 130, (5, -4, -8)),
     (512, 256, 1025, (3, -5, -4)), (2560, 512, 48, (0, -1, -1)),

@@ -288,9 +288,17 @@ def test_sweep_geometry_mirrors_the_kernel():
     (2048, "nw_sweep_wide"), (4096, "nw_sweep_wide")])
 def test_sweep_kernel_by_band_width(w, kernel):
     """W <= 256 (K1's tiers (256,128), (640,128), (1280,256)) always
-    takes the warp kernel; K2's tiers and the scored align route up to
-    W = 1024 the block kernel; W = 2048 and 4096 the wide instantiations."""
+    takes the warp kernel; wider bands the strip kernel, counted as
+    "nw_sweep_block" up to W = 1024 (K2's tiers and the scored align
+    route) and "nw_sweep_wide" at W = 2048 and 4096 (K5); the walk there
+    is packed2. One item an SM: four band lanes a thread (W = 1024 takes
+    8 warps), eight at W = 4096 (16 warps)."""
     assert geometry.sweep_kernel(w) == kernel
+    if w > geometry.SWEEP_WARP_MAX_W:
+        lanes = 8 if w == 4096 else 4
+        assert geometry.sweep_lanes(w, 4) == lanes
+        assert geometry.sweep_warps(w, 4) == -(-w // (32 * lanes))
+    assert (port.walk_fmt(w) == "packed2") == (kernel == "nw_sweep_wide")
 
 
 @pytest.mark.parametrize("cap,w,smem", [(256, 128, 2048), (640, 128, 5120),
@@ -306,10 +314,289 @@ def test_warp_sweep_threads_and_shared_bytes(cap, w, smem):
 @pytest.mark.parametrize("B,blocks", [(1, 1), (31, 8), (4097, 1025),
                                       (8192, 2048)])
 def test_warp_sweep_blocks_for_ragged_batches(B, blocks):
-    """A ragged batch rounds up to whole blocks; the block kernel keeps
-    one block per item."""
+    """A ragged batch rounds up to whole blocks; the strip kernel keeps
+    one block per item, with two 8-byte rings of SWEEP_RING slots a warp
+    beside the query codes (a byte each) and the target columns (4 bytes
+    each): at W = 1024 8 warps (four lanes a thread) up to 396 items, 4
+    above, where four or more items share an SM; at W = 4096 16."""
     assert geometry.sweep_launch(B, 640, 640, 128)[0] == blocks
-    assert geometry.sweep_launch(B, 5120, 5120, 1024)[:2] == (B, 1024)
+    warps = 8 if B <= 3 * geometry.SWEEP_SMS else 4
+    assert geometry.sweep_launch(B, 5120, 5120, 1024) == (
+        B, 32 * warps, warps * 2 * 8 * geometry.SWEEP_RING + 5 * 5120)
+    assert geometry.sweep_launch(B, 40960, 40960, 4096) == (
+        B, 512, 16 * 2 * 8 * geometry.SWEEP_RING + 5 * 40960)
+
+
+# ------------------------------ the strip sweep (W = 288 .. 4096: K2, K5)
+#
+# kernels/csrc/nw_sweep.cu's nw_sweep_strip_kernel: one block per item,
+# warp w owns a strip of S = 32 LPT band lanes, and the warps hand each
+# other two integers a row through rings of SWEEP_RING slots in shared
+# memory. The model below runs each warp as a generator that stops at
+# each of the kernel's waits; a seeded scheduler resumes, at random, any
+# warp whose slot holds the row it waits for, so the warps interleave in
+# any order the waits allow. A slot is (row, value); a reader takes it once
+# its row is the one wanted or later, as await_row does.
+
+_INT_MIN = np.iinfo(np.int64).min
+
+
+class _Ring:
+    """One warp's hand-off ring: `depth` slots of (row, value per item)."""
+
+    def __init__(self, depth, B):
+        self.depth = depth
+        self.row = [0] * depth
+        self.val = [np.zeros(B, np.int64) for _ in range(depth)]
+        self.overruns = 0  # reads that found a later row than wanted
+
+    def ready(self, row):
+        return self.row[row % self.depth] >= row
+
+    def take(self, row):
+        s = row % self.depth
+        self.overruns += self.row[s] > row
+        return self.val[s].copy()
+
+    def put(self, row, v):
+        s = row % self.depth
+        self.row[s], self.val[s] = row, v.copy()
+
+
+def _strip_warp(w, nw, cs, qs, gcp, rings, out, *, m_cap, n_cap, w_band,
+                lpt, match, mismatch, gap):
+    """Warp w of nw_sweep_strip_kernel on every item at once (arrays
+    (B, 32 threads, LPT lanes)), as the kernel computes it: H less gc
+    (hg), the column values code | deletion cost << 8, gc carried for each
+    thread's first lane and summed over its lanes in edge rows, and inside
+    the matrix each move from the scan value and which of diag and up won.
+    Yields (ring, row) before each wait and writes its moves and score
+    into `out`."""
+    W, S = w_band, 32 * lpt
+    B = cs.shape[0]
+    dlo = geometry.band_dlo(m_cap, n_cap, W)
+    k = w * S + np.arange(S).reshape(32, lpt)
+    k0 = k[:, 0]
+    band_end = k0 + lpt == W
+    live = k0 < W
+    fill_last = np.where(k0 + lpt - 1 <= geometry.scan_span(W) - 2,
+                         geometry.SCAN_FILL, _INT_MIN)
+    carry_out, first_out = rings[w]
+    has_left, has_right = w > 0, w + 1 < nw
+
+    def col(j):  # col32_at: PAD, no deletion cost, outside the target
+        return np.where((j >= 0) & (j < n_cap),
+                        cs[:, np.clip(j, 0, n_cap - 1)], geometry.PAD_CODE)
+
+    def gc_at(j):
+        return gcp[:, np.clip(j, 0, n_cap)]
+
+    def inside(j):
+        return (j >= 0) & (j <= n_cap)
+
+    def valid(j):
+        return (j >= 1) & (j <= n_cap)
+
+    def gc_lanes():  # gc at the thread's lanes of the current row
+        return gc0[:, :, None] + np.concatenate(
+            [np.zeros((B, 32, 1), np.int64), np.cumsum(c[:, :, 1:] >> 8, 2)],
+            2)
+
+    jz = dlo + k
+    gc0 = gc_at(jz[:, 0])
+    hp = np.where(inside(jz), 0, _NEG - gc_at(jz))
+    c = col(jz)
+    pack = np.zeros((B, 32, lpt), np.int64)
+    first_out.put(0, hp[:, 0, 0])
+    a_last = d_last = r_last = edge_last = None
+
+    def finish_last(r, right, edge):
+        up = right + gap
+        h = np.maximum(a_last, up)
+        if edge:
+            j = r + dlo + k0 + lpt - 1
+            h = np.where(valid(j), h, a_last)
+            h = np.where(inside(j), h, _NEG - gc_lanes()[:, :, -1])
+        mv = np.where(h == d_last, 0, np.where(h == up, 1, 2))
+        if edge:
+            mv = np.where(valid(j), mv, 3)
+        p = (r - 1) % 16
+        pack[:, :, -1] |= mv << (2 * p)
+        hp[:, :, -1] = h
+        if p == 15:
+            out["moves"][:, (r - 1) // 16, k[live].ravel()] = \
+                pack[:, live].reshape(B, -1)
+            pack[:] = 0
+
+    def right_of(r):
+        hr = _NEG
+        if has_right:
+            ring = rings[w + 1][1]
+            yield ring, r
+            hr = ring.take(r)[:, None]
+        lane31 = (np.arange(32) == 31)[None, :]
+        return np.where(band_end, _NEG, np.where(lane31, hr, r_last))
+
+    for i in range(1, m_cap + 1):
+        if i > 1:
+            finish_last(i - 1, (yield from right_of(i - 2)), edge_last)
+        jw = i + dlo + w * S
+        edge = not (jw >= 1 and jw + S - 1 <= n_cap)
+        qc = qs[:, i - 1, None, None].astype(np.int64)
+        if i > 1:  # lanes slide, each thread's last reads its new column
+            c = np.concatenate([c[:, :, 1:], col(i + dlo + k0 + lpt - 2)
+                                [:, :, None]], 2)
+        gc0 = gc0 + (c[:, :, 0] >> 8)
+        above_last = np.concatenate([hp[:, 1:, 0], hp[:, 31:, 0]], 1)
+        j = i + dlo + k
+        tc = c & 15
+        sub = np.where((tc == geometry.PAD_CODE) != (qc == geometry.PAD_CODE),
+                       _NEG, np.where(tc == qc, match, mismatch))
+        diag = hp + sub - (c >> 8)
+        up = hp[:, :, 1:] + gap
+        up_won = diag[:, :, :-1] < up
+        cand = diag.copy()
+        cand[:, :, :-1] = np.maximum(diag[:, :, :-1], up)
+        if edge:
+            g = gc_lanes()
+            cand = np.where(j == 0, i * gap, cand)
+            cand = np.where(inside(j), cand, _NEG - g)
+        own = cand
+        a = np.maximum.accumulate(cand.reshape(B, S), 1).reshape(B, 32, lpt)
+        carry = np.full((B, 1, 1), _INT_MIN)
+        if has_left:
+            ring = rings[w - 1][0]
+            yield ring, i
+            carry = ring.take(i)[:, None, None]
+        if has_right:
+            carry_out.put(i, np.maximum(carry[:, 0, 0], a[:, 31, -1]))
+        h = np.maximum(np.maximum(a, carry), geometry.SCAN_FILL)[:, :, :-1]
+        if edge:
+            h = np.where(inside(j[:, :-1]), h, _NEG - g[:, :, :-1])
+            mv = np.where(h == diag[:, :, :-1], 0, np.where(h == up, 1, 2))
+            mv = np.where(valid(j[:, :-1]), mv, 3)
+        else:
+            mv = np.where(h != own[:, :, :-1], 2, up_won)
+        pack[:, :, :-1] |= mv << (2 * ((i - 1) % 16))
+        hp[:, :, :-1] = h
+        a_last = np.maximum(np.maximum(a[:, :, -1], carry[:, :, 0]),
+                            fill_last)
+        d_last, r_last, edge_last = diag[:, :, -1], above_last, edge
+        if has_left:
+            first_out.put(i, hp[:, 0, 0])
+    finish_last(m_cap, (yield from right_of(m_cap - 1)), True)
+    end = n_cap - m_cap - dlo
+    if w * S <= end < (w + 1) * S:
+        out["score"] = hp.reshape(B, S)[:, end - w * S] + gcp[:, n_cap]
+
+
+def _strip_sweep_model(q4, t4, dcb, *, m_cap, n_cap, w_band, match,
+                       mismatch, gap, ring, seed, launch_items=None):
+    """numpy model of nw_sweep_strip_kernel at the LPT geometry.sweep_lanes
+    gives a launch of `launch_items` items (default: these) and a ring of
+    `ring` rows, its warps interleaved by a scheduler seeded with `seed`.
+    Returns (moves, score, overruns): overruns counts the reads that found
+    a slot already holding a later row."""
+    W = w_band
+    B = q4.shape[0]
+    lpt = geometry.sweep_lanes(W, launch_items or B)
+    nw = geometry.sweep_warps(W, launch_items or B)
+    qs, cs = _warp_slice(q4, t4, dcb)
+    cs = cs.astype(np.int64)
+    dc = (cs >> 4) * gap
+    gcp = np.concatenate([np.zeros((B, 1), np.int64), np.cumsum(dc, 1)], 1)
+    cs = (cs & 15) | (dc << 8)  # the strip kernel's column values
+    rings = [(_Ring(ring, B), _Ring(ring, B)) for _ in range(nw)]
+    out = {"moves": np.zeros((B, m_cap // 16, W), np.int64)}
+    geo = dict(m_cap=m_cap, n_cap=n_cap, w_band=W, lpt=lpt, match=match,
+               mismatch=mismatch, gap=gap)
+    warps = [_strip_warp(w, nw, cs, qs, gcp, rings, out, **geo)
+             for w in range(nw)]
+    waiting = {w: next(g) for w, g in enumerate(warps)}
+    rng = np.random.default_rng(seed)
+    while waiting:
+        ready = [w for w, (r, row) in waiting.items() if r.ready(row)]
+        w = ready[int(rng.integers(len(ready)))]
+        try:
+            waiting[w] = warps[w].send(None)
+        except StopIteration:
+            del waiting[w]
+    moves = out["moves"]
+    moves = np.where(moves >= 2 ** 31, moves - 2 ** 32, moves)
+    return (moves.astype(np.int32), out["score"].astype(np.int32),
+            sum(r.overruns for pair in rings for r in pair))
+
+
+def _strip_case(cap, w, scores, seed, B=12):
+    """make_batch's items (all-PAD and out-of-band ones among them),
+    packed as the device gets them; the align scores with every column's
+    deletion bit set, as the align stage sends them."""
+    match, mismatch, gap = scores
+    rng = np.random.default_rng(seed)
+    q8, t8, dc8, m, n = make_batch(rng, B, cap, gap)
+    if scores == (0, -1, -1):
+        dc8[:] = gap
+    b = to_device(pack_codes4(q8), pack_codes4(t8), pack_delbits(dc8), m, n,
+                  m_cap=cap, n_cap=cap, device="cpu")
+    geo = dict(m_cap=cap, n_cap=cap, w_band=w, match=match,
+               mismatch=mismatch, gap=gap)
+    return b, geo
+
+
+_STRIP_CASES = [(cap, w, scores, None)
+                for cap, w in ((256, 288), (512, 384), (512, 512),
+                               (512, 1024), (256, 2048), (256, 4096))
+                for scores in ((5, -4, -8), (0, -1, -1))] + [
+    (cap, w, (5, -4, -8), 1024)
+    for cap, w in ((512, 512), (512, 1024), (256, 2048))]
+
+
+@pytest.mark.parametrize("cap,w,scores,launch_items", _STRIP_CASES)
+def test_strip_sweep_model_matches_plain(cap, w, scores, launch_items):
+    """The strip kernel's schedule (strips, the per-row hand-off pair, the
+    ring at geometry.SWEEP_RING) under two seeded interleavings of its
+    warps, byte for byte against nw_sweep_plain; no read ever finds its
+    slot already reused. W = 288 cuts the last strip short. With the
+    launch of 12 items the rule takes four lanes a thread (eight at W =
+    4096); as part of a launch of 1024 items, eight at W = 512 to 2048."""
+    b, geo = _strip_case(cap, w, scores, cap + w)
+    want_mv, want_sc = port.nw_sweep_plain(b.q4, b.t4, b.dcb, **geo)
+    for seed in (1, 2):
+        got_mv, got_sc, overruns = _strip_sweep_model(
+            b.q4.numpy(), b.t4.numpy(), b.dcb.numpy(), **geo,
+            ring=geometry.SWEEP_RING, seed=seed, launch_items=launch_items)
+        assert overruns == 0
+        assert np.array_equal(got_mv, want_mv.numpy())
+        assert np.array_equal(got_sc, want_sc.numpy())
+
+
+def test_strip_ring_one_row_too_shallow_differs():
+    """With one row less of ring a warp overwrites a slot its neighbour
+    has not read yet: the same schedule gives other bytes."""
+    b, geo = _strip_case(512, 1024, (5, -4, -8), 3)
+    want_mv, _ = port.nw_sweep_plain(b.q4, b.t4, b.dcb, **geo)
+    got_mv, _, overruns = _strip_sweep_model(
+        b.q4.numpy(), b.t4.numpy(), b.dcb.numpy(), **geo,
+        ring=geometry.SWEEP_RING - 1, seed=1)
+    assert overruns > 0
+    assert not np.array_equal(got_mv, want_mv.numpy())
+
+
+def test_strip_row_loop_has_no_block_barrier():
+    """The strip kernel has one __syncthreads, after the codes are staged;
+    its row step, its hand-off helpers and its row loop (to the kernel's
+    end) hold none; the ring depth is geometry's."""
+    src = (_CSRC / "nw_sweep.cu").read_text()
+    start = src.index("nw_sweep_strip_kernel(")
+    body = src[start : src.index("\n}\n", start)]
+    barrier = body.index("__syncthreads")
+    assert "__syncthreads" not in body[barrier + 1 :]
+    assert barrier < body.index("auto row = [&]") \
+        < body.index("for (int i = 1; i <= m_cap; ++i)")
+    helpers = src[src.index("void publish(") : start]
+    assert "await_row" in helpers and "__syncthreads" not in helpers
+    assert int(re.search(r"kSweepRing = (\d+);", src).group(1)) \
+        == geometry.SWEEP_RING
 
 
 # ------------------------------------- the int16 sweeps (RACON_TPU_DP16=1)
