@@ -7,9 +7,9 @@ Phases (each must pass, or the script exits non-zero):
   1. the card's name and power limit, the torch/CUDA versions, the build
      of the kernels from racon_tpu_torch/kernels/csrc, and ptxas's
      register and spill counts of the sweep (warp and strip kernels), its
-     int16 form (nw_sweep16.cu), the rows walk, the panel sweep's five
-     instantiations and the Myers walk (a separate `nvcc -Xptxas -v`
-     compile of their sources, run beside the build);
+     int16 form (nw_sweep16.cu), the rows and packed2 walks, the panel
+     sweep's five instantiations and the Myers walk (a separate `nvcc
+     -Xptxas -v` compile of their sources, run beside the build);
   2. each kernel against its plain PyTorch version (on the host CPU) at the
      main paths' shapes, byte for byte, with CUDA-event times: the sweep,
      RLE walk and rows walk at (640,128) and (5120,1024) (with the two
@@ -20,12 +20,16 @@ Phases (each must pass, or the script exits non-zero):
      last checked; the sweep's us an item and share of its bound), the
      RLE walk at (640,128) B = 4097, the wide sweep and packed2 walk at
      (10240,2048) and (10240,4096), the times of one chunk at
-     (10240,2048) and (40960,4096), the align stage's scored route at
-     (10240,1024): sweep, RLE and rows walk at 0/-1/-1 with unit
-     deletion costs, the block sweep at the stages' chunks (10240,1024)
-     B = 409 (align scores) and (5120,1024) B = 819 (item 0 of each
-     checked), with us a query row and the per-SM floor at every
-     strip-sweep shape, and the warp sweep's other tiers (256,128) B = 4097
+     (10240,2048) and (40960,4096) (the packed2 walk held against its
+     plain version on a spread of the chunk's items), the align stage's
+     scored route at (10240,1024): sweep, RLE and rows walk at 0/-1/-1
+     with unit deletion costs, the block sweep at the stages' chunks
+     (10240,1024) B = 409 (align scores) and (5120,1024) B = 819 (item 0
+     of each checked) and the rows walk at the first (a spread of its
+     items checked), with us a query row and the per-SM floor at every
+     strip-sweep shape, the longest walk's steps or rows and us a step
+     (row) of it at every packed2 and rows walk shape, and the warp
+     sweep's other tiers (256,128) B = 4097
      and (1280,256) B = 1024 with the RLE walk; then under
      RACON_TPU_DP16=1 the int16 sweeps (K1-16 at (640,128) B = 4096 and
      (256,128) B = 4097, K2-16 at (2560,512) B = 1024 with the align
@@ -198,8 +202,9 @@ KERNELS = {  # name -> (source, TPU kernel or jnp routine it replaces)
 MAIN_KERNELS = ("nw_sweep", "rle_walk", "myers_sweep", "myers_walk")
 # sources whose ptxas report (registers, spills) phase 1 prints
 PTXAS_SOURCES = ("nw_sweep.cu", "nw_sweep16.cu", "rows_walk.cu",
-                 "nw_sweep_t.cu", "myers_walk.cu", "myers_sweep.cu",
-                 "rle_walk.cu", "pack_gather.cu", "myers_moves.cu")
+                 "packed_walk.cu", "nw_sweep_t.cu", "myers_walk.cu",
+                 "myers_sweep.cu", "rle_walk.cu", "pack_gather.cu",
+                 "myers_moves.cu")
 
 # Least-time model of one H100 SXM: 3.35 TB/s of HBM (NVIDIA data sheet)
 # and 16.73 Tops/s of INT32 (132 SMs x 64 INT32 lanes x 1.98 GHz boost:
@@ -402,17 +407,12 @@ def compare(name, got, want):
     return err
 
 
-def _walk_steps_taken(payload, fmt):
-    """Move words a walk had to read for this payload: packed2, one per
-    non-skip code (plus the escaping step); RLE, one per event pair up to
-    the last event."""
+def _walk_steps_taken(payload):
+    """Move words the RLE walk had to read for this payload: one per event
+    pair up to the last event."""
     import numpy as np
 
-    p = payload.numpy()
-    body, esc = p[:, :-1], p[:, -1].astype(np.int64)
-    if fmt == "packed2":
-        codes = np.stack([(body >> s) & 3 for s in (0, 2, 4, 6)], -1)
-        return int((codes != 3).sum() + esc.sum())
+    body = payload.numpy()[:, :-1]
     nz = body != 0
     last = np.where(nz.any(1), body.shape[1] - np.argmax(nz[:, ::-1], 1), 0)
     return int(((last + 1) // 2).sum())
@@ -460,43 +460,44 @@ def _walk_bound(B, cap, W, width, steps):
 def _rows_bound(payload, m, n, cap, W):
     """(rows walked, least ms, what bounds it) of the rows walk on this
     payload. Bytes: m and n, the payload, and each distinct move word
-    (16 rows of one lane) the walk's path needs, traced from the plain
-    walk's records: per row the lanes from the current one down to the
-    deletion run's exit (the lane of column 0 is UP without a read; an
-    escaping row, the word it stands on). 12 operations per row walked
-    (counted as the Myers walk's)."""
-    import numpy as np
+    (16 rows of one lane) the walk's path needs (ops/walk_work.rows_path).
+    12 operations per row walked (counted as the Myers walk's)."""
+    from racon_tpu_torch.ops.walk_work import rows_path
 
-    from racon_tpu_torch.ops.geometry import REC_UP, band_dlo
-
-    p = payload.numpy()
-    B = p.shape[0]
-    dlo = band_dlo(cap, cap, W)
-    m = np.asarray(m, np.int64)
-    top = np.minimum(m, cap)
-    k = np.asarray(n, np.int64) - m - dlo
-    alive = np.ones(B, bool)
-    per_item = (cap // 16) * W
-    words, rows = [], 0
-    for i in range(int(top.max(initial=0)), 0, -1):
-        act = alive & (top >= i)
-        rec = p[:, i - 1].astype(np.int64)
-        base = (i - 1) // 16 * W
-        esc = act & (rec == 0)
-        alive &= ~esc
-        e = np.flatnonzero(esc & (k >= 0) & (k < W))
-        words.append(e * per_item + base + k[e])
-        b = np.flatnonzero(act & (rec != 0))
-        rows += int(act.sum())
-        kk, left = k[b], rec[b] >> 2
-        cnt = left + 1 - (kk - left == -(i + dlo))
-        first = np.repeat(np.cumsum(cnt) - cnt, cnt)
-        lanes = np.repeat(kk, cnt) - (np.arange(int(cnt.sum())) - first)
-        words.append(np.repeat(b, cnt) * per_item + base + lanes)
-        k[b] = kk - left + ((rec[b] & 3) == REC_UP)
-    nwords = np.unique(np.concatenate(words)).size if words else 0
-    return (rows, *bound(4 * nwords + B * (8 + cap + 2),
+    rows, nwords = rows_path(payload, m, n, cap, W)
+    return (rows, *bound(4 * nwords + payload.shape[0] * (8 + cap + 2),
                          rows * OPS_WALK_STEP))
+
+
+def _packed_bound(payload, m, n, cap, W):
+    """(steps, least ms, what bounds it) of the packed2 walk on this
+    payload. Bytes: m and n, the payload, and each distinct move word the
+    walk's path reads (ops/walk_work.packed_path). 12 operations a step."""
+    from racon_tpu_torch.ops.walk_work import packed_path
+
+    steps, nwords = packed_path(payload, m, n, cap, W)
+    B, width = payload.shape
+    return (steps, *bound(4 * nwords + B * (8 + width),
+                          steps * OPS_WALK_STEP))
+
+
+def _longest(name, payload, m, ms):
+    """The longest walk of a packed2 or rows payload (CPU): its steps or
+    rows, and the kernel's us a step (row) of it. One warp walks an item,
+    so that walk's chain sets the kernel's time."""
+    from racon_tpu_torch.ops.walk_work import walk_units
+
+    units = walk_units(payload, name, m)
+    longest = int(units.max()) if len(units) else 0
+    key = "steps" if name == "packed_walk" else "rows"
+    return {f"longest_{key}": longest,
+            f"us_per_{key[:-1]}_of_longest": 1e3 * ms / max(longest, 1)}
+
+
+def _longest_note(longest):
+    (k1, n), (k2, us) = longest.items()
+    unit = k1.split("_")[1][:-1]
+    return f"; the longest walk {n} {unit}s, {us:.5f} us a {unit}"
 
 
 def _decode_ms(fmt, payload, cap, W, m, n, threads):
@@ -625,13 +626,14 @@ def _floor_note(B, cap, W, ms):
 def phase_kernels(results, threads):
     """Phase 2: each kernel vs its plain version at main-path shapes."""
     import numpy as np
+    import torch
 
     from racon_tpu_torch.ops import nw_kernel as nk
     from racon_tpu_torch.native import loader
     from racon_tpu_torch.ops.align_stage import _chunk_size
     from racon_tpu_torch.ops.batch import to_device
     from racon_tpu_torch.ops.consensus_stage import chunk_size
-    from racon_tpu_torch.ops.geometry import sweep_kernel
+    from racon_tpu_torch.ops.geometry import rows_walk_launch, sweep_kernel
 
     t0 = time.perf_counter()
     if loader.get() is None:
@@ -690,22 +692,28 @@ def phase_kernels(results, threads):
             dec = _decode_ms(fmt, pp.numpy(), cap, W, m, n, threads)
             if fmt == "rows":
                 steps, bw, byw = _rows_bound(pp, m, n, cap, W)
+            elif fmt == "packed2":
+                steps, bw, byw = _packed_bound(pp, m, n, cap, W)
             else:
-                steps = _walk_steps_taken(pp, fmt)
+                steps = _walk_steps_taken(pp)
                 bw, byw = _walk_bound(B, cap, W, pp.shape[1], steps)
             unit = "rows" if fmt == "rows" else "steps"
+            longest = ({} if fmt == "rle"
+                       else _longest(walk_name, pp, m, wms))
             log(f"[kernels] {walk_name} ({cap},{W}) B={B}{tag}: "
                 f"byte-equal, {esc} escapes, {steps} {unit}; {wms:.3f} ms "
                 f"(plain CPU {walk_plain:.1f} ms, bound {bw:.5f} ms by "
-                f"{byw}); D2H payload {pp.numel()} bytes, host decode "
-                f"{dec:.3f} ms on {threads} threads")
+                f"{byw}){_longest_note(longest) if longest else ''}; D2H "
+                f"payload {pp.numel()} bytes, host decode {dec:.3f} ms on "
+                f"{threads} threads")
             numbers = dict(max_abs_err=werr, ms=wms, plain_ms=walk_plain,
-                           bound_ms=bw, bound_by=byw)
+                           bound_ms=bw, bound_by=byw, **longest)
             shape(walk_name, cap, W, B, sc, **numbers)
 
     def chunk(cap, W, drift, rng, check_item):
-        """One launch at a stage's chunk size (the 1 GiB move budget);
-        with check_item, its first item against the plain versions."""
+        """One launch at a stage's chunk size (the 1 GiB move budget):
+        the packed walk on a spread of its items against the plain walk;
+        with check_item, the sweep's item 0 against the plain sweep."""
         geo = dict(m_cap=cap, n_cap=cap, w_band=W)
         sc = align if W == 4096 else consensus
         Bc = chunk_size(cap, W, 1024 if W == 4096 else 8192)
@@ -716,15 +724,27 @@ def phase_kernels(results, threads):
                         device="cuda")
         mv_big, sc_big = nk.nw_sweep(big.q4, big.t4, big.dcb, **geo, **sc)
         pay_big = nk.packed_walk(mv_big, big.m, big.n, **geo)
+        # the walk on a spread of the items' moves (item 3 leaves the
+        # band, 6 is all PAD) and the last, copied to the CPU, against the
+        # plain walk
+        idx = np.unique(np.r_[np.arange(0, Bc, 7 if Bc < 64 else 29), 3, 6,
+                              Bc - 1])
+        sub = to_device(q4[idx], t4[idx], dcb[idx], m[idx], n[idx],
+                        m_cap=cap, n_cap=cap, device="cpu")
+        sel = torch.from_numpy(idx).cuda()
+        werr = compare(f"packed_walk payload (chunk items "
+                       f"{','.join(map(str, idx))})", pay_big[sel],
+                       nk.packed_walk_plain(mv_big[sel].cpu(), sub.m, sub.n,
+                                            **geo))
         s_big = cuda_ms(lambda: nk.nw_sweep(big.q4, big.t4, big.dcb, **geo,
                                             **sc), reps=3)
         w_big = cuda_ms(lambda: nk.packed_walk(mv_big, big.m, big.n,
                                                **geo), reps=3)
         bs, bys = _sweep_bound(Bc, cap, W)
-        steps = _walk_steps_taken(pay_big.cpu(), "packed2")
-        bw, byw = _walk_bound(Bc, cap, W, pay_big.shape[1], steps)
+        steps, bw, byw = _packed_bound(pay_big.cpu(), m, n, cap, W)
+        longest = _longest("packed_walk", pay_big.cpu(), m, w_big)
         checked = ""
-        err = werr = sweep_plain = None  # the plain versions, item 0 only
+        err = sweep_plain = None  # the plain sweep, item 0 only
         if check_item:
             one = to_device(q4[:1], t4[:1], dcb[:1], m[:1], n[:1], m_cap=cap,
                             n_cap=cap, device="cpu")
@@ -735,20 +755,21 @@ def phase_kernels(results, threads):
                         pm),
                 compare("nw_sweep_wide score (chunk item 0)", sc_big[:1],
                         ps))
-            werr = compare("packed_walk payload (chunk item 0)",
-                           pay_big[:1],
-                           nk.packed_walk_plain(pm, one.m, one.n, **geo))
-            checked = (f"; item 0 byte-equal to the plain versions (plain "
-                       f"CPU sweep {sweep_plain:.1f} ms for that one item)")
+            checked = (f"; sweep item 0 byte-equal to the plain version "
+                       f"(plain CPU sweep {sweep_plain:.1f} ms for that one "
+                       f"item)")
         log(f"[kernels] nw_sweep_wide+packed_walk ({cap},{W}) B={Bc} (one "
             f"chunk): sweep {s_big:.3f} ms (bound {bs:.3f} ms"
             f"{_floor_note(Bc, cap, W, s_big)}), walk {w_big:.3f} ms (bound "
-            f"{bw:.5f} ms, {steps} steps){checked}")
+            f"{bw:.5f} ms, {steps} steps{_longest_note(longest)}; items "
+            f"{','.join(map(str, idx))} byte-equal to the plain walk)"
+            f"{checked}")
         shape("nw_sweep_wide", cap, W, Bc, sc, max_abs_err=err, ms=s_big,
               plain_ms_item0=sweep_plain, bound_ms=bs, bound_by=bys,
               **_floor_numbers(Bc, cap, W, s_big))
         shape("packed_walk", cap, W, Bc, sc, max_abs_err=werr, ms=w_big,
-              bound_ms=bw, bound_by=byw)
+              bound_ms=bw, bound_by=byw, plain_items=idx.tolist(),
+              **longest)
 
     def block_chunk(cap, W, Bc, rng, sc):
         """The block sweep at a stage's chunk, item 0 against the plain
@@ -778,6 +799,32 @@ def phase_kernels(results, threads):
         shape("nw_sweep_block", cap, W, Bc, sc, max_abs_err=err, ms=ms,
               plain_ms_item0=plain, bound_ms=bs, bound_by=bys,
               **_floor_numbers(Bc, cap, W, ms))
+        if sc is not align:
+            return
+        # the align stage's scored route walks this chunk with the rows
+        # walk (RACON_TPU_WALK=rows): timed here, held against the plain
+        # walk on a spread of items (3 leaves the band, 6 is all PAD)
+        pay = nk.rows_walk(mv, big.m, big.n, **geo)
+        wms = cuda_ms(lambda: nk.rows_walk(mv, big.m, big.n, **geo), reps=3)
+        idx = np.unique(np.r_[np.linspace(0, Bc - 1, 8).astype(int), 3, 6,
+                              Bc - 1])
+        sub = to_device(q4[idx], t4[idx], dcb[idx], m[idx], n[idx],
+                        m_cap=cap, n_cap=cap, device="cpu")
+        sel = torch.from_numpy(idx).cuda()
+        pp, walk_plain = host_ms(lambda: nk.rows_walk_plain(
+            mv[sel].cpu(), sub.m, sub.n, **geo))
+        werr = compare(f"rows_walk payload (chunk items "
+                       f"{','.join(map(str, idx))})", pay[sel], pp)
+        rows, bw, byw = _rows_bound(pay.cpu(), m, n, cap, W)
+        longest = _longest("rows_walk", pay.cpu(), m, wms)
+        log(f"[kernels] rows_walk ({cap},{W}) B={Bc} (one chunk){tag}: "
+            f"{wms:.3f} ms (bound {bw:.5f} ms by {byw}, {rows} rows"
+            f"{_longest_note(longest)}); items {','.join(map(str, idx))} "
+            f"byte-equal to the plain walk (plain CPU {walk_plain:.1f} ms "
+            f"for them); {rows_walk_launch(Bc, W)[0]} blocks")
+        shape("rows_walk", cap, W, Bc, sc, max_abs_err=werr, ms=wms,
+              plain_ms=walk_plain, plain_items=idx.tolist(), bound_ms=bw,
+              bound_by=byw, **longest)
 
     scored(640, 128, 4096, None, ("rle", "rows"), rng, consensus)
     scored(5120, 1024, 8, None, ("rle", "rows"), rng, consensus)
@@ -1894,7 +1941,7 @@ def _myers_rle(results, threads):
         b5, by5 = bound(2 * plane_bytes + 4 * B,
                         B * (cap // 16) * W * OPS_MOVES_WORD)
         E = rle_events(cap, cap, W)
-        steps = _walk_steps_taken(rle.cpu(), "rle")
+        steps = _walk_steps_taken(rle.cpu())
         b1, by1 = _walk_bound(B, cap, W, E + 1, steps)
         log(f"[myers_rle] ({cap},{W}) B={B}: J5 byte-equal on items "
             f"{idx.tolist()} ({moves_plain:.1f} ms plain CPU), J1 too "

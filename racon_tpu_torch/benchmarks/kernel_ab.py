@@ -1,34 +1,45 @@
 """The Myers sweep (K3, kernels/csrc/myers_sweep.cu), the RLE walk (J1,
-kernels/csrc/rle_walk.cu) and the scored sweep's strip kernel (K2 and K5,
-kernels/csrc/nw_sweep.cu at W > 256) of this checkout against those of
-another version of the sources, on one card, timed in turns:
+kernels/csrc/rle_walk.cu), the scored sweep's strip kernel (K2 and K5,
+kernels/csrc/nw_sweep.cu at W > 256), the packed2 walk (J4,
+kernels/csrc/packed_walk.cu) and the rows walk (K6,
+kernels/csrc/rows_walk.cu) of this checkout against those of another
+version of the sources, on one card, timed in turns:
 
     python -m racon_tpu_torch.benchmarks.kernel_ab OTHER_CSRC [--json PATH]
+        [--only myers_sweep rle_walk strip walks]
 
 OTHER_CSRC is a directory holding the other version's myers_sweep.cu,
-rle_walk.cu, nw_sweep.cu, sweep_scan.cuh and common.cuh (for example
-unpacked with `git archive <commit> racon_tpu_torch/kernels/csrc | tar
--x`). Both versions are built alike, by nvcc into a shared library of
-their plain C launchers bound with ctypes, and fed the same inputs (seed
-7: every 7th item all PAD, every 11th cut short so that it leaves the
-band). Per shape: both outputs byte for byte on every item, then
-CUDA-event ms (mean of 5 launches after a warm-up) in the order other,
-this, this, other; each version's mean, us per item and the share of the
-bound (the least time, as chip_smoke.py computes it: bytes over 3.35
-TB/s or INT32 ops over 16.73 T/s, whichever is larger). Shapes: K3 at
-(10240,1024) B = 409 (the align stage's former chunk) and B = 1024 (its
-chunk now), (2560,512) B = 1024 and (10240,4096) B = 409; J1 at
-(640,128) B = 4096 and 4097, with the steps its items take (one move
-word each) and the longest walk's, and this build's time over that
-walk's steps; the strip sweep at K2's (10240,1024) B = 4 and B = 409
-(the align stage's scored chunk) with the align scores (0/-1/-1, every
-column's deletion bit set) and (5120,1024) B = 8 with the consensus
-scores (5/-4/-8, 30 % free deletion columns), and at K5's (10240,2048)
-B = 16 and B = 204 (the consensus chunk) with the consensus scores and
-(10240,4096) B = 4 and (40960,4096) B = 25 (the align chunk) with the
-align scores: besides, its us a query row and the per-SM floor (15 ops
-a cell over an SM's 64 INT32 lanes at 1.98 GHz, the items of an SM one
-after another).
+rle_walk.cu, nw_sweep.cu, packed_walk.cu, rows_walk.cu, sweep_scan.cuh
+and common.cuh (for example unpacked with `git archive <commit>
+racon_tpu_torch/kernels/csrc | tar -x`); a file it lacks is taken from
+this checkout, so that a directory of one variant source (such as
+benchmarks/variants/rows_walk_producer/) builds against the rest of this
+version. Both versions are built alike,
+by nvcc into a shared library of their plain C launchers bound with
+ctypes, and fed the same inputs (seed 7: every 7th item all PAD, every
+11th cut short so that it leaves the band). Per shape: both outputs byte
+for byte on every item, then CUDA-event ms (mean of 5 launches after a
+warm-up) in the order other, this, this, other; each version's mean, us
+per item and the share of the bound (the least time, as chip_smoke.py
+computes it: bytes over 3.35 TB/s or INT32 ops over 16.73 T/s, whichever
+is larger). Shapes: K3 at (10240,1024) B = 409 (the align stage's former
+chunk) and B = 1024 (its chunk now), (2560,512) B = 1024 and
+(10240,4096) B = 409; J1 at (640,128) B = 4096 and 4097, with the steps
+its items take (one move word each) and the longest walk's, and this
+build's time over that walk's steps; the strip sweep at K2's
+(10240,1024) B = 4 and B = 409 (the align stage's scored chunk) with the
+align scores (0/-1/-1, every column's deletion bit set) and (5120,1024)
+B = 8 with the consensus scores (5/-4/-8, 30 % free deletion columns),
+and at K5's (10240,2048) B = 16 and B = 204 (the consensus chunk) with
+the consensus scores and (10240,4096) B = 4 and (40960,4096) B = 25 (the
+align chunk) with the align scores: besides, its us a query row and the
+per-SM floor (15 ops a cell over an SM's 64 INT32 lanes at 1.98 GHz, the
+items of an SM one after another). The packed2 walk at K5's four shapes
+and the rows walk at (640,128) B = 4096 (consensus scores) and
+(10240,1024) B = 4 and B = 409 (align scores), on this build's sweep of
+the same items (seed 14): besides, the steps (rows) of the longest walk
+and each build's us a step (row) of it; their bound counts each distinct
+move word the walk's path needs (ops/walk_work, as chip_smoke.py does).
 
 Needs nvcc and a CUDA device (exit 2 without one). Prints the card's
 name and power limit first and one JSON line last.
@@ -48,7 +59,8 @@ import numpy as np
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "..", "kernels", "csrc")
-SOURCES = ("myers_sweep.cu", "rle_walk.cu", "nw_sweep.cu")
+SOURCES = ("myers_sweep.cu", "rle_walk.cu", "nw_sweep.cu", "packed_walk.cu",
+           "rows_walk.cu")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
@@ -59,20 +71,26 @@ SMS, SM_INT32_OPS_PER_S = 132, 64 * 1.98e9
 
 
 def build(csrc: str, out: str) -> ctypes.CDLL:
-    """nvcc the sources of `csrc` into `out` and load it."""
+    """nvcc the sources of `csrc` into `out` and load it; a source or
+    header that `csrc` lacks comes from this checkout's."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     nvcc = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "nvcc")
+    srcs = [os.path.join(csrc if os.path.exists(os.path.join(csrc, s))
+                         else CSRC, s) for s in SOURCES]
     subprocess.run([nvcc, ARCH, "-std=c++17", "-O3", "-shared",
-                    "-Xcompiler", "-fPIC", "-o", out,
-                    *(os.path.join(csrc, s) for s in SOURCES)], check=True)
+                    "-Xcompiler", "-fPIC", "-I", csrc, "-I", CSRC, "-o", out,
+                    *srcs], check=True)
     lib = ctypes.CDLL(out)
     P, I = ctypes.c_void_p, ctypes.c_int
     lib.rtt_myers_sweep.argtypes = [P] * 3 + [I] * 4 + [P]
     lib.rtt_rle_walk.argtypes = [P] * 4 + [I] * 5 + [P]
     lib.rtt_nw_sweep.argtypes = [P] * 5 + [I] * 8 + [P]
-    lib.rtt_myers_sweep.restype = lib.rtt_rle_walk.restype = I
-    lib.rtt_nw_sweep.restype = I
+    lib.rtt_packed_walk.argtypes = [P] * 4 + [I] * 5 + [P]
+    lib.rtt_rows_walk.argtypes = [P] * 4 + [I] * 4 + [P]
+    for fn in (lib.rtt_myers_sweep, lib.rtt_rle_walk, lib.rtt_nw_sweep,
+               lib.rtt_packed_walk, lib.rtt_rows_walk):
+        fn.restype = I
     return lib
 
 
@@ -220,12 +238,179 @@ def strip_sweeps(libs, rng, stream):
     return rows
 
 
+WALK_SHAPES = (("packed_walk", 10240, 2048, 16, "consensus"),
+               ("packed_walk", 10240, 2048, 204, "consensus"),
+               ("packed_walk", 10240, 4096, 4, "align"),
+               ("packed_walk", 40960, 4096, 25, "align"),
+               ("rows_walk", 640, 128, 4096, "consensus"),
+               ("rows_walk", 10240, 1024, 4, "align"),
+               ("rows_walk", 10240, 1024, 409, "align"))
+
+
+def walks(libs, rng, stream):
+    """The packed2 and rows walks of both builds on this build's sweep of
+    the same items, drawn from their own generator (seed 14), so that
+    they do not depend on the sections timed before them."""
+    import torch
+
+    from racon_tpu_torch.ops.batch import to_device
+    from racon_tpu_torch.ops.geometry import scan_span, walk_steps
+    from racon_tpu_torch.ops.walk_work import (packed_path, rows_path,
+                                               walk_units)
+
+    rng = np.random.default_rng(14)
+    scores = {"consensus": (5, -4, -8), "align": (0, -1, -1)}
+    rows = []
+    for name, cap, W, B, kind in WALK_SHAPES:
+        sc = scores[kind]
+        q4, t4, m, n = items(rng, B, cap, W)
+        dcb = np.packbits(rng.random((B, cap)) >= 0.3, axis=1,
+                          bitorder="little")
+        if kind == "align":
+            dcb[:] = 0xFF
+        g = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap,
+                      device="cuda")
+        moves = torch.empty((B, cap // 16, W), dtype=torch.int32,
+                            device="cuda")
+        score = torch.empty(B, dtype=torch.int32, device="cuda")
+        rc = libs["this"].rtt_nw_sweep(ptr(g.q4), ptr(g.t4), ptr(g.dcb),
+                                       ptr(moves), ptr(score), B, cap, cap,
+                                       W, *sc, scan_span(W), stream())
+        if rc:
+            raise SystemExit(f"rtt_nw_sweep: error {rc}")
+        S = walk_steps(cap, cap, W)
+        width = S // 4 + 1 if name == "packed_walk" else cap + 2
+        payload = torch.empty((B, width), dtype=torch.uint8, device="cuda")
+
+        def walk(lib):
+            if name == "packed_walk":
+                rc = lib.rtt_packed_walk(ptr(moves), ptr(g.m), ptr(g.n),
+                                         ptr(payload), B, cap, cap, W, S,
+                                         stream())
+            else:
+                rc = lib.rtt_rows_walk(ptr(moves), ptr(g.m), ptr(g.n),
+                                       ptr(payload), B, cap, cap, W,
+                                       stream())
+            if rc:
+                raise SystemExit(f"rtt_{name}: error {rc}")
+
+        walk(libs["this"])
+        torch.cuda.synchronize()
+        longest = int(walk_units(payload, name, m).max())
+        # bytes: m and n, the payload, and each distinct move word the
+        # walk's path needs (16 rows of one lane); 12 ops a step (row)
+        path = packed_path if name == "packed_walk" else rows_path
+        total, nwords = path(payload.cpu(), m, n, cap, W)
+        row = in_turns(name, (cap, W), B, libs, walk, lambda: payload,
+                       bound_ms(4 * nwords + B * (8 + width),
+                                total * OPS_WALK_STEP))
+        unit = "step" if name == "packed_walk" else "row"
+        row.update(units=total, unit=unit, move_words=nwords,
+                   longest=longest,
+                   us_per_unit_of_longest={
+                       k: 1e3 * row[k]["ms"] / longest
+                       for k in ("other", "this")})
+        print(f"  {total} {unit}s, the longest walk {longest}: other "
+              f"{row['us_per_unit_of_longest']['other']:.5f}, this "
+              f"{row['us_per_unit_of_longest']['this']:.5f} us a {unit}",
+              flush=True)
+        rows.append(row)
+        del moves, payload, g
+        torch.cuda.empty_cache()
+    return rows
+
+
+def myers_sweeps(libs, rng, stream):
+    """The Myers sweep (K3) of both builds at the align stage's shapes."""
+    import torch
+
+    from racon_tpu_torch.ops.batch import to_device
+
+    rows = []
+    for cap, W, B in ((10240, 1024, 409), (10240, 1024, 1024),
+                      (2560, 512, 1024), (10240, 4096, 409)):
+        q4, t4, m, n = items(rng, B, cap, W)
+        g = to_device(q4, t4, None, m, n, m_cap=cap, n_cap=cap,
+                      device="cuda")
+        planes = torch.empty((B, cap, 2, W // 32), dtype=torch.int32,
+                             device="cuda")
+
+        def sweep(lib):
+            rc = lib.rtt_myers_sweep(ptr(g.q4), ptr(g.t4), ptr(planes),
+                                     B, cap, cap, W, stream())
+            if rc:
+                raise SystemExit(f"rtt_myers_sweep: error {rc}")
+
+        nbytes = B * cap + B * cap * 2 * (W // 32) * 4
+        rows.append(in_turns(
+            "myers_sweep", (cap, W), B, libs, sweep, lambda: planes,
+            bound_ms(nbytes, B * cap * (W // 32) * OPS_MYERS_WORD)))
+        del planes, g
+        torch.cuda.empty_cache()
+    return rows
+
+
+def rle_walks(libs, rng, stream):
+    """The RLE walk (J1) of both builds at the consensus stage's tier."""
+    import torch
+
+    from racon_tpu_torch.ops import nw_kernel as nk
+    from racon_tpu_torch.ops.batch import to_device
+    from racon_tpu_torch.ops.geometry import rle_events
+
+    rows = []
+    for B in (4096, 4097):
+        cap, W = 640, 128
+        E = rle_events(cap, cap, W)
+        q4, t4, m, n = items(rng, B, cap, W)
+        dcb = np.full((B, cap // 8), 0xB7, np.uint8)
+        g = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap,
+                      device="cuda")
+        moves, _ = nk.nw_sweep(g.q4, g.t4, g.dcb, m_cap=cap, n_cap=cap,
+                               w_band=W, match=5, mismatch=-4, gap=-8)
+        payload = torch.empty((B, E + 1), dtype=torch.uint8, device="cuda")
+
+        def walk(lib):
+            rc = lib.rtt_rle_walk(ptr(moves), ptr(g.m), ptr(g.n),
+                                  ptr(payload), B, cap, cap, W, E, stream())
+            if rc:
+                raise SystemExit(f"rtt_rle_walk: error {rc}")
+
+        # bytes: m and n, the payload, one move word per event pair
+        walk(libs["this"])
+        body = payload[:, :-1].cpu().numpy()
+        nz = body != 0
+        last = np.where(nz.any(1), E - np.argmax(nz[:, ::-1], 1), 0)
+        per_item = (last + 1) // 2
+        steps = int(per_item.sum())
+        row = in_turns("rle_walk", (cap, W), B, libs, walk, lambda: payload,
+                       bound_ms(4 * steps + B * (8 + E + 1),
+                                steps * OPS_WALK_STEP))
+        # a warp runs until its longest walk ends: that walk's chain of
+        # dependent move-word loads sets the kernel's time
+        row.update(steps=steps, max_steps=int(per_item.max()),
+                   ns_per_step_of_longest=1e6 * row["this"]["ms"]
+                   / int(per_item.max()))
+        print(f"rle_walk B={B}: {steps} steps, the longest walk "
+              f"{row['max_steps']}: {row['ns_per_step_of_longest']:.1f} ns "
+              "a step", flush=True)
+        rows.append(row)
+    return rows
+
+
+# each section's kernels of both builds, in this order; the first three
+# draw their items from one generator (seed 7), the walks from their own
+SECTIONS = {"myers_sweep": myers_sweeps, "rle_walk": rle_walks,
+            "strip": strip_sweeps, "walks": walks}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("other", help="directory of the other version's "
-                    "myers_sweep.cu, rle_walk.cu, nw_sweep.cu, "
-                    "sweep_scan.cuh and common.cuh")
+                    "sources (those it lacks come from this checkout)")
     ap.add_argument("--json", help="also write the result rows here")
+    ap.add_argument("--only", nargs="+", choices=list(SECTIONS),
+                    default=list(SECTIONS), help="time only these kernels")
     args = ap.parse_args()
 
     import torch
@@ -236,10 +421,6 @@ def main() -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip(), flush=True)
-    from racon_tpu_torch.ops import nw_kernel as nk
-    from racon_tpu_torch.ops.batch import to_device
-    from racon_tpu_torch.ops.geometry import rle_events
-
     rows = []
     with tempfile.TemporaryDirectory() as tmp:
         libs = {"other": build(args.other, os.path.join(tmp, "other.so")),
@@ -247,67 +428,9 @@ def main() -> int:
         rng = np.random.default_rng(7)
         stream = lambda: ctypes.c_void_p(
             torch.cuda.current_stream().cuda_stream)
-        for cap, W, B in ((10240, 1024, 409), (10240, 1024, 1024),
-                          (2560, 512, 1024), (10240, 4096, 409)):
-            q4, t4, m, n = items(rng, B, cap, W)
-            g = to_device(q4, t4, None, m, n, m_cap=cap, n_cap=cap,
-                          device="cuda")
-            planes = torch.empty((B, cap, 2, W // 32), dtype=torch.int32,
-                                 device="cuda")
-
-            def sweep(lib):
-                rc = lib.rtt_myers_sweep(ptr(g.q4), ptr(g.t4), ptr(planes),
-                                         B, cap, cap, W, stream())
-                if rc:
-                    raise SystemExit(f"rtt_myers_sweep: error {rc}")
-
-            nbytes = B * cap + B * cap * 2 * (W // 32) * 4
-            rows.append(in_turns(
-                "myers_sweep", (cap, W), B, libs, sweep, lambda: planes,
-                bound_ms(nbytes, B * cap * (W // 32) * OPS_MYERS_WORD)))
-            del planes, g
-            torch.cuda.empty_cache()
-        for B in (4096, 4097):
-            cap, W = 640, 128
-            E = rle_events(cap, cap, W)
-            q4, t4, m, n = items(rng, B, cap, W)
-            dcb = np.full((B, cap // 8), 0xB7, np.uint8)
-            g = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap,
-                          device="cuda")
-            moves, _ = nk.nw_sweep(g.q4, g.t4, g.dcb, m_cap=cap, n_cap=cap,
-                                   w_band=W, match=5, mismatch=-4, gap=-8)
-            payload = torch.empty((B, E + 1), dtype=torch.uint8,
-                                  device="cuda")
-
-            def walk(lib):
-                rc = lib.rtt_rle_walk(ptr(moves), ptr(g.m), ptr(g.n),
-                                      ptr(payload), B, cap, cap, W, E,
-                                      stream())
-                if rc:
-                    raise SystemExit(f"rtt_rle_walk: error {rc}")
-
-            # bytes: m and n, the payload, one move word per event pair
-            walk(libs["this"])
-            body = payload[:, :-1].cpu().numpy()
-            nz = body != 0
-            last = np.where(nz.any(1), E - np.argmax(nz[:, ::-1], 1), 0)
-            per_item = (last + 1) // 2
-            steps = int(per_item.sum())
-            row = in_turns(
-                "rle_walk", (cap, W), B, libs, walk, lambda: payload,
-                bound_ms(4 * steps + B * (8 + E + 1),
-                         steps * OPS_WALK_STEP))
-            # a warp runs until its longest walk ends: that walk's chain of
-            # dependent move-word loads sets the kernel's time
-            row.update(steps=steps, max_steps=int(per_item.max()),
-                       ns_per_step_of_longest=1e6 * row["this"]["ms"]
-                       / int(per_item.max()))
-            print(f"rle_walk B={B}: {steps} steps, the longest walk "
-                  f"{row['max_steps']}: "
-                  f"{row['ns_per_step_of_longest']:.1f} ns a step",
-                  flush=True)
-            rows.append(row)
-        rows += strip_sweeps(libs, rng, stream)
+        for name, section in SECTIONS.items():
+            if name in args.only:
+                rows += section(libs, rng, stream)
     line = json.dumps({"device": torch.cuda.get_device_name(0),
                        "rows": rows})
     if args.json:

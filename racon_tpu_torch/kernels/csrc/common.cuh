@@ -36,6 +36,42 @@ __device__ __forceinline__ uint32_t onehot(int pos, int w) {
   return (rel >= 0 && rel < 32) ? (1u << rel) : 0u;
 }
 
+// 16 bytes from global to shared memory by cp.async (L2 only), in the
+// current commit group
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// wait until at most N of this thread's commit groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Lane j holds row j of a 32 x 32 bit matrix (bit t = column t); returns
+// column `lane` (bit j = row j's bit lane). Block transposes of halving
+// size: at step s, lanes that differ in bit s swap their off-diagonal
+// s x s blocks. Every lane of the warp must take part.
+__device__ __forceinline__ uint32_t transpose32(uint32_t x, int lane) {
+  const uint32_t masks[5] = {0x0000FFFFu, 0x00FF00FFu, 0x0F0F0F0Fu,
+                             0x33333333u, 0x55555555u};
+#pragma unroll
+  for (int step = 0, s = 16; step < 5; ++step, s >>= 1) {
+    const uint32_t mk = masks[step];
+    const uint32_t y = __shfl_xor_sync(kFull, x, s);
+    x = (lane & s) ? ((x & ~mk) | ((y >> s) & mk))
+                   : ((x & mk) | ((y & mk) << s));
+  }
+  return x;
+}
+
 }  // namespace rtt
 
 // Launchers return the launch status without clearing it, so the PyTorch

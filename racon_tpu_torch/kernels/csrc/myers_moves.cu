@@ -28,23 +28,6 @@ using namespace rtt;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-// Lane j holds row j of a 32 x 32 bit matrix (bit t = column t); returns
-// column `lane` (bit j = row j's bit lane). Block transposes of halving
-// size: at step s, lanes that differ in bit s swap their off-diagonal
-// s x s blocks.
-__device__ __forceinline__ uint32_t transpose32(uint32_t x, int lane) {
-  const uint32_t masks[5] = {0x0000FFFFu, 0x00FF00FFu, 0x0F0F0F0Fu,
-                             0x33333333u, 0x55555555u};
-#pragma unroll
-  for (int step = 0, s = 16; step < 5; ++step, s >>= 1) {
-    const uint32_t mk = masks[step];
-    const uint32_t y = __shfl_xor_sync(kFull, x, s);
-    x = (lane & s) ? ((x & ~mk) | ((y >> s) & mk))
-                   : ((x & mk) | ((y & mk) << s));
-  }
-  return x;
-}
-
 // Bits 0 .. 2n - 1 (n row pairs, n <= 16).
 __device__ __forceinline__ uint32_t pairs_below(int n) {
   return n >= 16 ? kFull : (1u << (2 * n)) - 1u;

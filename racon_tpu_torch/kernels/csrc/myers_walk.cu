@@ -44,22 +44,6 @@ constexpr int kWalkWarps = 2;   // items (warps) per block;
 constexpr int kWalkRows = 16;   // query rows per cp.async group;
                                 // geometry.MYERS_WALK_ROWS
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // The rare part of a row step: kvec out of the band, or no set lane at or
 // below kvec in its own word. Returns k_exit << 2 | DIAG hit << 1 | UP
 // hit, or -1 to escape.

@@ -121,8 +121,10 @@ def peq_words(n_cap: int, w_band: int) -> int:
 # the RLE walk, a warp of items); the constants mirror kSweepWarps,
 # kSweepRing (kernels/csrc/nw_sweep.cu), kSweep16Warps
 # (kernels/csrc/nw_sweep16.cu), kWalkWarps, kWalkRows
-# (kernels/csrc/myers_walk.cu) and kWalkItems, kMaxStage
-# (kernels/csrc/rle_walk.cu).
+# (kernels/csrc/myers_walk.cu), kWalkItems, kMaxStage
+# (kernels/csrc/rle_walk.cu), kPackedWarps, kPackedSlots, kWindowLanes,
+# kStageBytes (kernels/csrc/packed_walk.cu) and kRowsWarps, kRowsSlots
+# (kernels/csrc/rows_walk.cu).
 SWEEP_WARP_MAX_W = 256    # widest band the warp-per-item sweep takes
 SWEEP_WARPS = 4           # items (warps) per block of the warp sweep
 SWEEP_RING = 2            # rows in each strip's hand-off rings
@@ -130,6 +132,12 @@ SWEEP_SMS = 132           # SMs of the H100 the strip kernel's rule counts
 MYERS_WALK_WARPS = 2      # items (warps) per block of the Myers walk
 MYERS_WALK_ROWS = 16      # query rows per cp.async group of the walk
 RLE_WALK_ITEMS = 32       # items (threads) per block of the RLE walk
+PACKED_WALK_WARPS = 1     # items (warps) per block of the packed2 walk
+PACKED_WALK_SLOTS = 16    # word-rows (16 query rows) in its warps' rings
+PACKED_WALK_LANES = 128   # lanes of a word-row its ring slots hold, at most
+PACKED_WALK_STAGE = 512   # payload bytes it stages per copy-out
+ROWS_WALK_WARPS = 2       # items (warps) per block of the rows walk
+ROWS_WALK_SLOTS = 4       # word-rows (16 query rows) in its warps' rings
 SMEM_BLOCK_MAX = 227 * 1024  # shared bytes one block may use (H100)
 
 
@@ -233,6 +241,29 @@ def myers_walk_launch(B: int, w_band: int) -> tuple[int, int, int]:
     return (-(-B // MYERS_WALK_WARPS), 32 * MYERS_WALK_WARPS,
             MYERS_WALK_WARPS * myers_walk_ring(w_band) * 2 * (w_band // 32)
             * 4)
+
+
+def packed_walk_launch(B: int, w_band: int) -> tuple[int, int, int]:
+    """(blocks, threads per block, shared bytes per block) of one packed2
+    walk launch: PACKED_WALK_WARPS items a block (one, so that a chunk of
+    up to 132 items takes as many SMs), each warp a ring of
+    PACKED_WALK_SLOTS slots that hold PACKED_WALK_LANES lanes of a
+    word-row (the whole row where W is narrower; a lane outside the window
+    is read from global memory), a staging buffer of PACKED_WALK_STAGE
+    bytes and a base lane per slot."""
+    lanes = min(w_band, PACKED_WALK_LANES)
+    return (-(-B // PACKED_WALK_WARPS), 32 * PACKED_WALK_WARPS,
+            PACKED_WALK_WARPS * (PACKED_WALK_SLOTS * (lanes + 1) * 4
+                                 + PACKED_WALK_STAGE))
+
+
+def rows_walk_launch(B: int, w_band: int) -> tuple[int, int, int]:
+    """(blocks, threads per block, shared bytes per block) of one rows walk
+    launch: ROWS_WALK_WARPS items a block, each warp a ring of
+    ROWS_WALK_SLOTS word-rows (W words each) and the bit planes of one
+    word-row (W words)."""
+    return (-(-B // ROWS_WALK_WARPS), 32 * ROWS_WALK_WARPS,
+            ROWS_WALK_WARPS * (ROWS_WALK_SLOTS + 1) * w_band * 4)
 
 
 def myers_sweep_launch(B: int, n_cap: int,

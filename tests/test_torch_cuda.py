@@ -180,6 +180,104 @@ def test_sweep_and_packed_walk_match_plain(gpu, cap, w):
                        nk.packed_walk_plain(pm, c.m, c.n, **geo))
 
 
+@pytest.mark.parametrize("cap,w,B,drift,scores", [
+    (10240, 2048, 204, 700, (5, -4, -8)),
+    (40960, 4096, 25, 1500, (0, -1, -1))])
+def test_packed_walk_at_stage_chunks(gpu, cap, w, B, drift, scores):
+    """J4 at the stages' chunks: the consensus stage's (10240,2048) B =
+    204 and the align stage's scored route at (40960,4096) B = 25 (0/-1/-1,
+    every deletion bit set), every 5th item drifting far off the diagonal,
+    every 7th all PAD. Every item byte-equal to the plain walk on the
+    kernel sweep's moves, copied to the CPU."""
+    q4, t4, dcb, m, n = _packed(cap + w + B, B, cap, drift)
+    if scores[0] == 0:
+        dcb[:] = 0xFF
+    geo = dict(m_cap=cap, n_cap=cap, w_band=w)
+    g = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap, device=gpu)
+    c = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap, device="cpu")
+    moves, _ = nk.nw_sweep(g.q4, g.t4, g.dcb, **geo, match=scores[0],
+                           mismatch=scores[1], gap=scores[2])
+    before = LAUNCHES["packed_walk"]
+    payload = nk.packed_walk(moves, g.m, g.n, **geo)
+    torch.cuda.synchronize()
+    assert LAUNCHES["packed_walk"] == before + 1
+    want = nk.packed_walk_plain(moves.cpu(), c.m, c.n, **geo)
+    assert torch.equal(payload.cpu(), want)
+    assert want[:, -1].any() and not want[:, -1].all()
+
+
+def test_rows_walk_at_the_align_chunk(gpu):
+    """K6 at the align stage's scored chunk, (10240,1024) B = 409 with the
+    align scores (0/-1/-1, every deletion bit set): every item byte-equal
+    to the plain walk on the kernel sweep's moves, copied to the CPU."""
+    from racon_tpu_torch.ops.align_stage import _chunk_size
+
+    cap, w = 10240, 1024
+    B = _chunk_size(cap, w, False)
+    assert B == 409
+    q4, t4, dcb, m, n = _packed(cap + w + B, B, cap, w // 2 + 100)
+    dcb[:] = 0xFF
+    geo = dict(m_cap=cap, n_cap=cap, w_band=w)
+    g = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap, device=gpu)
+    c = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap, device="cpu")
+    moves, _ = nk.nw_sweep(g.q4, g.t4, g.dcb, **geo, match=0, mismatch=-1,
+                           gap=-1)
+    before = LAUNCHES["rows_walk"]
+    payload = nk.rows_walk(moves, g.m, g.n, **geo)
+    torch.cuda.synchronize()
+    assert LAUNCHES["rows_walk"] == before + 1
+    want = nk.rows_walk_plain(moves.cpu(), c.m, c.n, **geo)
+    assert torch.equal(payload.cpu(), want)
+    assert want[:, -1].any() and not want[:, -1].all()
+
+
+def test_rows_walk_long_deletion_runs(gpu):
+    """Rows whose deletion run crosses one or two 32-lane groups (the
+    walk's out-of-line step) or passes 63 lanes (escape), as in
+    test_myers_walk_long_deletion_runs but through the scored sweep at the
+    align scores: A/C queries, targets with G/T blocks of 0-12 and 33-70
+    bases, at W = 256, 1024 and 4096. Runs up to 63 are taken whole, 64
+    and 70 escape."""
+    rng = np.random.default_rng(67)
+    runs = (33, 47, 52, 58, 63, 64, 70)
+    for cap, w in ((256, 256), (1024, 1024), (1024, 4096)):
+        pairs = []
+        for run in runs:
+            for early in (0, 6, 12):
+                q = rng.choice(ACGT[:2], int(rng.integers(120, 160)))
+                pos = int(rng.integers(40, len(q) - 10))
+                t = np.insert(q, pos, rng.choice(ACGT[2:], run))
+                pairs.append((q, np.insert(t, 20, rng.choice(ACGT[2:],
+                                                              early))))
+        B = len(pairs)
+        q8 = np.full((B, cap), 5, np.uint8)
+        t8 = np.full((B, cap), 5, np.uint8)
+        m = np.array([len(q) for q, _ in pairs], np.int32)
+        n = np.array([len(t) for _, t in pairs], np.int32)
+        for b, (q, t) in enumerate(pairs):
+            q8[b, : len(q)] = encode(q)
+            t8[b, : len(t)] = encode(t)
+        q4 = q8[:, 0::2] | (q8[:, 1::2] << 4)
+        t4 = t8[:, 0::2] | (t8[:, 1::2] << 4)
+        dcb = np.full((B, cap // 8), 0xFF, np.uint8)
+        geo = dict(m_cap=cap, n_cap=cap, w_band=w)
+        g = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap, device=gpu)
+        c = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap, device="cpu")
+        moves, _ = nk.nw_sweep(g.q4, g.t4, g.dcb, **geo, match=0,
+                               mismatch=-1, gap=-1)
+        before = LAUNCHES["rows_walk"]
+        payload = nk.rows_walk(moves, g.m, g.n, **geo)
+        torch.cuda.synchronize()
+        assert LAUNCHES["rows_walk"] == before + 1
+        want = nk.rows_walk_plain(moves.cpu(), c.m, c.n, **geo)
+        assert torch.equal(payload.cpu(), want), (cap, w)
+        planned = np.repeat(runs, 3)
+        longest = (want[:, :cap].numpy() >> 2).max(1)
+        taken = planned <= 63
+        assert (longest[taken] == planned[taken]).all(), (cap, w)
+        assert want[~taken, -1].all() and not want[taken, -1].any()
+
+
 @pytest.mark.parametrize("cap,w,B,check", [(512, 64, 9, 9),
                                            (2560, 512, 9, 9),
                                            (10240, 4096, 9, 9),
