@@ -2144,27 +2144,11 @@ def phase_align(datasets, threads, results):
 
 def _sweep_t_bound(B, m_cap, n_cap, W, variant):
     """(least ms, what bounds it) of one panel-sweep variant on B items,
-    by what that variant must read, compute and write: every variant
-    writes the score; full (K7) reads q, tp and gcp once and writes the
-    moves, 15 ops per cell; noclosure reads no gc past row 0 and drops the
-    scan and the gc arithmetic (11 ops); nomoves writes no moves (12 ops);
-    noload reads one query code and one band window of tp and of gcp (W + 1
-    columns) per item; empty reads gcp's first W columns and does one add
-    per move word it stores."""
-    score, moves = 4 * B, 4 * B * (m_cap // 16) * W
-    q, window = 4 * B * m_cap, 4 * B * W
-    tp = 4 * B * (n_cap + 2 * W)
-    gcp = tp + 4 * B
-    cells = B * m_cap * W
-    if variant == "empty":
-        return bound(window + moves + score, moves // 4)
-    nbytes, ops = {
-        "full": (q + tp + gcp + moves, OPS_SWEEP_CELL),
-        "noclosure": (q + tp + window + moves, OPS_SWEEP_CELL - 4),
-        "nomoves": (q + tp + gcp, OPS_SWEEP_CELL - 3),
-        "noload": (4 * B + 2 * window + 4 * B + moves, OPS_SWEEP_CELL),
-    }[variant]
-    return bound(nbytes + score, cells * ops)
+    by what that variant must read, compute and write
+    (profile_ablate.variant_work)."""
+    from racon_tpu_torch.benchmarks.profile_ablate import variant_work
+
+    return bound(*variant_work(B, m_cap, n_cap, W, variant, OPS_SWEEP_CELL))
 
 
 def phase_ablate(results):
@@ -2192,6 +2176,12 @@ def phase_ablate(results):
         raise SmokeFailure(f"the harness launched {counts}")
     for k in ("nw_sweep_t", "nw_ablate"):
         results[k]["launches"] = counts[k]
+        # the warp kernel at the harness's W = 128 (four lanes a thread):
+        # K7 is <4,1,1,1,0>, the K8 variants every instantiation
+        results[k]["ptxas"] = {
+            x: v for x, v in PTXAS.items()
+            if x.startswith("nw_sweep_t_warp_kernel<4,")
+            and (k == "nw_ablate" or x.endswith("<4,1,1,1,0>"))}
     cpu = [torch.from_numpy(inp[k][:n]) for k in ("q", "tp", "gcp")]
     checks = [("nw_ablate", v, v, lambda v=v: pa.run_variant_plain(
         *cpu, **geo, variant=v)) for v in pa.VARIANTS]

@@ -1,16 +1,19 @@
 """The Myers sweep (K3, kernels/csrc/myers_sweep.cu), the RLE walk (J1,
 kernels/csrc/rle_walk.cu), the scored sweep's strip kernel (K2 and K5,
 kernels/csrc/nw_sweep.cu at W > 256), the packed2 walk (J4,
-kernels/csrc/packed_walk.cu) and the rows walk (K6,
-kernels/csrc/rows_walk.cu) of this checkout against those of another
+kernels/csrc/packed_walk.cu), the rows walk (K6,
+kernels/csrc/rows_walk.cu), the panel sweep and its ablation variants
+(K7, K8, kernels/csrc/nw_sweep_t.cu) and the int16 warp sweep (K1-16,
+kernels/csrc/nw_sweep16.cu) of this checkout against those of another
 version of the sources, on one card, timed in turns:
 
     python -m racon_tpu_torch.benchmarks.kernel_ab OTHER_CSRC [--json PATH]
-        [--only myers_sweep rle_walk strip walks]
+        [--only myers_sweep rle_walk strip walks sweep_t sweep16]
 
 OTHER_CSRC is a directory holding the other version's myers_sweep.cu,
-rle_walk.cu, nw_sweep.cu, packed_walk.cu, rows_walk.cu, sweep_scan.cuh
-and common.cuh (for example unpacked with `git archive <commit>
+rle_walk.cu, nw_sweep.cu, packed_walk.cu, rows_walk.cu, nw_sweep_t.cu,
+nw_sweep16.cu, sweep_scan.cuh and common.cuh (for example unpacked with
+`git archive <commit>
 racon_tpu_torch/kernels/csrc | tar -x`); a file it lacks is taken from
 this checkout, so that a directory of one variant source (such as
 benchmarks/variants/rows_walk_producer/) builds against the rest of this
@@ -40,6 +43,15 @@ and the rows walk at (640,128) B = 4096 (consensus scores) and
 the same items (seed 14): besides, the steps (rows) of the longest walk
 and each build's us a step (row) of it; their bound counts each distinct
 move word the walk's path needs (ops/walk_work, as chip_smoke.py does).
+The panel sweep: every variant (full = K7, noclosure, nomoves, noload,
+empty) at the ablation harness's (640,128) B = 8192 on its items
+(profile_ablate.make_inputs), each against its work
+(profile_ablate.variant_work), and this build's K1 (nw_sweep) on the same
+items packed, byte-equal to K7 and timed beside it. The int16 warp sweep
+at (640,128) B = 4096 and (256,128) B = 4097 with the consensus scores
+(30 % free deletion columns), both builds against this build's int32 K1
+on every item, K1 timed beside them; its bound counts two cells a 16x2
+instruction.
 
 Needs nvcc and a CUDA device (exit 2 without one). Prints the card's
 name and power limit first and one JSON line last.
@@ -60,37 +72,46 @@ import numpy as np
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "..", "kernels", "csrc")
 SOURCES = ("myers_sweep.cu", "rle_walk.cu", "nw_sweep.cu", "packed_walk.cu",
-           "rows_walk.cu")
+           "rows_walk.cu", "nw_sweep_t.cu", "nw_sweep16.cu")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 OPS_MYERS_WORD = 20
 OPS_WALK_STEP = 12
 OPS_SWEEP_CELL = 15
+CELLS_PER_OP16 = 2   # the int16 sweep: two cells per 16x2 instruction
 SMS, SM_INT32_OPS_PER_S = 132, 64 * 1.98e9
 
 
-def build(csrc: str, out: str) -> ctypes.CDLL:
-    """nvcc the sources of `csrc` into `out` and load it; a source or
-    header that `csrc` lacks comes from this checkout's."""
+def start_build(csrc: str, out: str, sources) -> subprocess.Popen:
+    """Start nvcc on `sources` of `csrc` into `out`; a source or header
+    that `csrc` lacks comes from this checkout's."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     nvcc = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "nvcc")
     srcs = [os.path.join(csrc if os.path.exists(os.path.join(csrc, s))
-                         else CSRC, s) for s in SOURCES]
-    subprocess.run([nvcc, ARCH, "-std=c++17", "-O3", "-shared",
-                    "-Xcompiler", "-fPIC", "-I", csrc, "-I", CSRC, "-o", out,
-                    *srcs], check=True)
+                         else CSRC, s) for s in sources]
+    return subprocess.Popen([nvcc, ARCH, "-std=c++17", "-O3", "-shared",
+                             "-Xcompiler", "-fPIC", "-I", csrc, "-I", CSRC,
+                             "-o", out, *srcs])
+
+
+def load(out: str) -> ctypes.CDLL:
+    """The built library at `out`, the launchers it holds typed."""
     lib = ctypes.CDLL(out)
     P, I = ctypes.c_void_p, ctypes.c_int
-    lib.rtt_myers_sweep.argtypes = [P] * 3 + [I] * 4 + [P]
-    lib.rtt_rle_walk.argtypes = [P] * 4 + [I] * 5 + [P]
-    lib.rtt_nw_sweep.argtypes = [P] * 5 + [I] * 8 + [P]
-    lib.rtt_packed_walk.argtypes = [P] * 4 + [I] * 5 + [P]
-    lib.rtt_rows_walk.argtypes = [P] * 4 + [I] * 4 + [P]
-    for fn in (lib.rtt_myers_sweep, lib.rtt_rle_walk, lib.rtt_nw_sweep,
-               lib.rtt_packed_walk, lib.rtt_rows_walk):
-        fn.restype = I
+    sigs = {"rtt_myers_sweep": [P] * 3 + [I] * 4 + [P],
+            "rtt_rle_walk": [P] * 4 + [I] * 5 + [P],
+            "rtt_nw_sweep": [P] * 5 + [I] * 8 + [P],
+            "rtt_packed_walk": [P] * 4 + [I] * 5 + [P],
+            "rtt_rows_walk": [P] * 4 + [I] * 4 + [P],
+            "rtt_nw_sweep_t": [P] * 5 + [I] * 9 + [P],
+            "rtt_nw_sweep16": [P] * 5 + [I] * 9 + [P]}
+    for name, argtypes in sigs.items():
+        fn = getattr(lib, name, None)
+        if fn is not None:
+            fn.argtypes = argtypes
+            fn.restype = I
     return lib
 
 
@@ -398,10 +419,131 @@ def rle_walks(libs, rng, stream):
     return rows
 
 
+def sweep_t(libs, rng, stream):
+    """The panel sweep's variants (K7 = full, K8) of both builds at the
+    ablation harness's shape and items, and this build's K1 on the same
+    items packed."""
+    import torch
+
+    from racon_tpu_torch.benchmarks import profile_ablate as pa
+    from racon_tpu_torch.ops.batch import to_device
+    from racon_tpu_torch.ops.geometry import scan_span
+
+    B, cap, W = 8192, 640, 128
+    inp = pa.make_inputs(B, cap, W)
+    q, tp, gcp = (torch.from_numpy(inp[k]).cuda()
+                  for k in ("q", "tp", "gcp"))
+    sc = tuple(pa.SCORES.values())
+    nmv = B * (cap // 16) * W
+    buf = torch.empty(nmv + B, dtype=torch.int32, device="cuda")
+    rows = []
+    for v, name in enumerate(pa.VARIANTS):
+        def run(lib, v=v):
+            rc = lib.rtt_nw_sweep_t(ptr(q), ptr(tp), ptr(gcp), ptr(buf),
+                                    ptr(buf[nmv:]), B, cap, cap, W, *sc,
+                                    scan_span(W), v, stream())
+            if rc:
+                raise SystemExit(f"rtt_nw_sweep_t: error {rc}")
+
+        row = in_turns(f"nw_sweep_t {name}", (cap, W), B, libs, run,
+                       lambda: buf, bound_ms(*pa.variant_work(
+                           B, cap, cap, W, name, OPS_SWEEP_CELL)))
+        row["variant"] = name
+        rows.append(row)
+        if name == "full":
+            k7 = buf.clone()
+    g = to_device(inp["q4"], inp["t4"], inp["dcb"], inp["m"], inp["n"],
+                  m_cap=cap, n_cap=cap, device="cuda")
+
+    def k1():
+        rc = libs["this"].rtt_nw_sweep(ptr(g.q4), ptr(g.t4), ptr(g.dcb),
+                                       ptr(buf), ptr(buf[nmv:]), B, cap, cap,
+                                       W, *sc, scan_span(W), stream())
+        if rc:
+            raise SystemExit(f"rtt_nw_sweep: error {rc}")
+
+    k1()
+    torch.cuda.synchronize()
+    if not torch.equal(buf, k7):
+        raise SystemExit("nw_sweep_t full and nw_sweep (K1) differ")
+    k1_ms = cuda_ms(k1)
+    print(f"  K1 (nw_sweep, this build) on the same items packed: "
+          f"{k1_ms:.4f} ms, byte-equal to K7", flush=True)
+    rows[0]["k1_ms"] = k1_ms
+    del buf, q, tp, gcp, g
+    torch.cuda.empty_cache()
+    return rows
+
+
+def sweep16(libs, rng, stream):
+    """The int16 warp sweep (K1-16) of both builds at the consensus
+    stage's (640,128) and (256,128) chunks, each against this build's
+    int32 K1 on every item."""
+    import torch
+
+    from racon_tpu_torch.ops.batch import to_device
+    from racon_tpu_torch.ops.geometry import scan_span
+
+    rng = np.random.default_rng(16)
+    sc = (5, -4, -8)
+    rows = []
+    for cap, W, B in ((640, 128, 4096), (256, 128, 4097)):
+        q4, t4, m, n = items(rng, B, cap, W)
+        dcb = np.packbits(rng.random((B, cap)) >= 0.3, axis=1,
+                          bitorder="little")
+        g = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap,
+                      device="cuda")
+        neg = -((cap + cap) * max(map(abs, sc)) + 64)
+        nmv = B * (cap // 16) * W
+        buf = torch.empty(nmv + B, dtype=torch.int32, device="cuda")
+
+        def run(lib):
+            rc = lib.rtt_nw_sweep16(ptr(g.q4), ptr(g.t4), ptr(g.dcb),
+                                    ptr(buf), ptr(buf[nmv:]), B, cap, cap, W,
+                                    *sc, scan_span(W), neg, stream())
+            if rc:
+                raise SystemExit(f"rtt_nw_sweep16: error {rc}")
+
+        def k1():
+            rc = libs["this"].rtt_nw_sweep(ptr(g.q4), ptr(g.t4), ptr(g.dcb),
+                                           ptr(buf), ptr(buf[nmv:]), B, cap,
+                                           cap, W, *sc, scan_span(W),
+                                           stream())
+            if rc:
+                raise SystemExit(f"rtt_nw_sweep: error {rc}")
+
+        k1()
+        torch.cuda.synchronize()
+        want = buf.clone()
+        nbytes = B * (cap // 2 + cap // 2 + cap // 8) + 4 * (nmv + B)
+        row = in_turns("nw_sweep16", (cap, W), B, libs, run, lambda: buf,
+                       bound_ms(nbytes, B * cap * W * OPS_SWEEP_CELL
+                                / CELLS_PER_OP16))
+        if not torch.equal(buf, want):
+            raise SystemExit(f"nw_sweep16 ({cap},{W}) B={B}: differs from "
+                             "the int32 sweep")
+        row["int32_ms"] = cuda_ms(k1)
+        print(f"  byte-equal to the int32 K1 on every item; K1 "
+              f"{row['int32_ms']:.4f} ms", flush=True)
+        rows.append(row)
+        del buf, g
+        torch.cuda.empty_cache()
+    return rows
+
+
 # each section's kernels of both builds, in this order; the first three
-# draw their items from one generator (seed 7), the walks from their own
+# draw their items from one generator (seed 7), the others from their own
 SECTIONS = {"myers_sweep": myers_sweeps, "rle_walk": rle_walks,
-            "strip": strip_sweeps, "walks": walks}
+            "strip": strip_sweeps, "walks": walks, "sweep_t": sweep_t,
+            "sweep16": sweep16}
+# the sources each section builds (both versions)
+SECTION_SOURCES = {"myers_sweep": ("myers_sweep.cu",),
+                   "rle_walk": ("rle_walk.cu", "nw_sweep.cu"),
+                   "strip": ("nw_sweep.cu",),
+                   "walks": ("nw_sweep.cu", "packed_walk.cu",
+                             "rows_walk.cu"),
+                   "sweep_t": ("nw_sweep_t.cu", "nw_sweep.cu"),
+                   "sweep16": ("nw_sweep16.cu", "nw_sweep.cu")}
 
 
 def main() -> int:
@@ -423,8 +565,15 @@ def main() -> int:
                          text=True, check=True).stdout.strip(), flush=True)
     rows = []
     with tempfile.TemporaryDirectory() as tmp:
-        libs = {"other": build(args.other, os.path.join(tmp, "other.so")),
-                "this": build(CSRC, os.path.join(tmp, "this.so"))}
+        outs = {"other": (args.other, os.path.join(tmp, "other.so")),
+                "this": (CSRC, os.path.join(tmp, "this.so"))}
+        sources = [src for src in SOURCES
+                   if any(src in SECTION_SOURCES[x] for x in args.only)]
+        procs = {k: start_build(*v, sources) for k, v in outs.items()}
+        for k, proc in procs.items():
+            if proc.wait():
+                raise SystemExit(f"kernel_ab: the {k} build failed")
+        libs = {k: load(out) for k, (_, out) in outs.items()}
         rng = np.random.default_rng(7)
         stream = lambda: ctypes.c_void_p(
             torch.cuda.current_stream().cuda_stream)

@@ -59,6 +59,31 @@ def run_variant(q, tp, gcp, *, m_cap, n_cap, w_band, variant):
     return out
 
 
+def variant_work(B, m_cap, n_cap, W, variant, ops_cell=15):
+    """(bytes, integer ops) that one variant's launch on B items must at
+    least move and do: every variant writes the score; full (K7) reads q,
+    tp and gcp once and writes the moves, `ops_cell` ops per cell (15:
+    substitution 5, diag/up/max 3, gc 3, scan max 1, moves 3); noclosure
+    reads no gc past row 0 and drops the scan and the gc arithmetic (4
+    ops); nomoves writes no moves (3 ops); noload reads one query code and
+    one band window of tp and of gcp (W + 1 columns) per item; empty reads
+    gcp's first W columns and does one add per move word it stores."""
+    score, moves = 4 * B, 4 * B * (m_cap // 16) * W
+    q, window = 4 * B * m_cap, 4 * B * W
+    tp = 4 * B * (n_cap + 2 * W)
+    gcp = tp + 4 * B
+    cells = B * m_cap * W
+    if variant == "empty":
+        return window + moves + score, moves // 4
+    nbytes, ops = {
+        "full": (q + tp + gcp + moves, ops_cell),
+        "noclosure": (q + tp + window + moves, ops_cell - 4),
+        "nomoves": (q + tp + gcp, ops_cell - 3),
+        "noload": (4 * B + 2 * window + 4 * B + moves, ops_cell),
+    }[variant]
+    return nbytes + score, cells * ops
+
+
 def run_variant_plain(q, tp, gcp, *, m_cap, n_cap, w_band, variant):
     """Plain PyTorch version of run_variant on CPU panels."""
     nk.check_sweep_t(m_cap, n_cap, w_band, variant)

@@ -3,11 +3,14 @@ rate the card issues them, for the int16 sweeps (kernels/csrc/
 nw_sweep16.cu):
 
     python -m racon_tpu_torch.benchmarks.simd16_rate [SOURCE.cu ...]
+        [--sass-dir DIR]
 
 1. SASS: each source (by default simd16_rate.cu beside this file and
    kernels/csrc/nw_sweep16.cu) compiled to a cubin for sm_90a and read
    with cuobjdump -sass; per kernel, the count of each opcode (with its
-   .S16x2 / .U16x2 modifiers), one line per kernel.
+   .S16x2 / .U16x2 modifiers), one line per kernel; with --sass-dir, each
+   source's whole listing to DIR/<n>_<source>.sass (n its place in the
+   list), to count a row loop's instructions from.
 2. Rates: simd16_rate.cu's kernels, one per operation, each thread running
    8 chains of it (each also pays one LOP3 a step to mix in its
    neighbour chain, so an operation issued at the LOP3's rate shows as
@@ -22,6 +25,7 @@ name and power limit first.
 
 from __future__ import annotations
 
+import argparse
 import collections
 import ctypes
 import os
@@ -46,13 +50,18 @@ def _tool(name: str) -> str:
     return os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", name)
 
 
-def sass_opcodes(src: str, tmp: str) -> dict[str, collections.Counter]:
-    """{kernel name: Counter of SASS opcodes} of `src` built for sm_90a."""
+def sass_opcodes(src: str, tmp: str,
+                 listing: str | None = None) -> dict[str, collections.Counter]:
+    """{kernel name: Counter of SASS opcodes} of `src` built for sm_90a;
+    the listing also written to `listing` when given."""
     cubin = os.path.join(tmp, os.path.basename(src) + ".cubin")
     subprocess.run([_tool("nvcc"), ARCH, "-std=c++17", "-O3", "-cubin",
                     "-o", cubin, src], check=True)
     sass = subprocess.run([_tool("cuobjdump"), "-sass", cubin], check=True,
                           capture_output=True, text=True).stdout
+    if listing:
+        with open(listing, "w") as f:
+            f.write(sass)
     out: dict[str, collections.Counter] = {}
     name = None
     for line in sass.splitlines():
@@ -91,10 +100,18 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip().splitlines()
     print(smi[0] if smi else torch.cuda.get_device_name(0), flush=True)
-    sources = sys.argv[1:] or [PROBE, SWEEP16]
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("sources", nargs="*", default=[PROBE, SWEEP16])
+    ap.add_argument("--sass-dir", help="write each source's SASS here")
+    args = ap.parse_args()
+    if args.sass_dir:
+        os.makedirs(args.sass_dir, exist_ok=True)
     with tempfile.TemporaryDirectory() as tmp:
-        for src in sources:
-            for kernel, ops in sass_opcodes(src, tmp).items():
+        for n, src in enumerate(args.sources):
+            listing = (os.path.join(args.sass_dir,
+                                    f"{n}_{os.path.basename(src)}.sass")
+                       if args.sass_dir else None)
+            for kernel, ops in sass_opcodes(src, tmp, listing).items():
                 simd = {k: v for k, v in sorted(ops.items())
                         if re.search(r"VI|PRMT|IMNMX|LOP3|IADD|SHFL|VABS|"
                                      r"ISETP|SEL|IMAD|SHF|STS|LDS|STG",

@@ -227,7 +227,9 @@ def main(argv: list[str] | None = None) -> int:
         print(HELP, end="")
         return 1
     out = sys.stdout.buffer
-    if args.distributed or os.environ.get("RACON_TPU_DISTRIBUTED") == "1":
+    distributed = args.distributed or \
+        os.environ.get("RACON_TPU_DISTRIBUTED") == "1"
+    if distributed:
         # keep fd 1 for the FASTA: a private handle on the real stdout
         # carries the records, and fd 1 points at stderr, where any
         # library chatter then lands
@@ -238,6 +240,17 @@ def main(argv: list[str] | None = None) -> int:
         from .parallel import dist
 
         dist.initialize()
+    rc = 1
+    try:
+        rc = _polish(args, out)
+        return rc
+    finally:
+        if distributed:
+            # every rank leaves the group together, before Python's exit
+            dist.shutdown(wait=rc == 0)
+
+
+def _polish(args, out) -> int:
     profiler = _start_profiler(args.profile) if args.profile else None
     try:
         polisher = create_polisher(args.inputs[0], args.inputs[1],

@@ -14,44 +14,58 @@
 // the low half, 2v + 1 in the high half), and the row step is written in
 // the packed 16x2 instructions sm_90a issues natively (cuobjdump -sass:
 // __vadd2 as one VIADD.16x2, __vmaxs2 / __vminu2 as one VIMNMX.S16x2 /
-// .U16x2, the three-way forms as one VIMNMX3; __vsub2 with a register
-// operand as two VIADD.16x2, so the one subtraction a pair and row, a -
-// gc, costs two; __vcmpeq2 is emulated, so it is not used): one
-// instruction does the work of two cells. Per pair and
-// row: the column slide (one PRMT), the deletion cost (the sign of the
-// column half's high byte replicated by PRMT), the substitution (an XOR of
-// the column and query code bytes, whose PAD code 0x80 makes the sign of
-// the low byte flag a PAD against a base), diag, up, max, the scan, and
-// the moves from XORs with h and unsigned 16x2 minima, accumulated into a
-// pair word 8 rows at a time by one multiply-add. The matrix-edge masks
-// (j == 0, j outside [0, n_cap], pad lanes) run only in threads whose
-// lanes touch an edge, behind a branch; an interior thread skips them.
-// Wrapping 16x2 adds, as the plain version wraps; the gate keeps every
-// value in range, so nothing wraps.
+// .U16x2, the three-way forms as one VIMNMX3, __viaddmax_s16x2 as one
+// VIADDMNMX; __vsub2 with a register operand as two VIADD.16x2 and
+// __vcmpeq2 emulated, so neither is used in a row): one instruction does
+// the work of two cells. Wrapping 16x2 adds, as the plain version wraps;
+// the gate keeps every value in range, so nothing wraps.
 //
-// nw_sweep16_warp_kernel<TPI, P, W> (W <= 256, K1's tiers): TPI threads per
-// item (a warp; half of one, two items a warp, at W = 128, where that timed
-// 3 % faster than a warp an item on an H100 at 700 W:
-// geometry.sweep16_tpi), P pairs per thread
-// (thread t owns lanes 2Pt .. 2Pt + 2P - 1; lanes from W up to 2 P TPI are
-// pad lanes held at neg), everything of a row in registers and shuffles,
-// as nw_sweep.cu's warp kernel: one shuffle a row brings the next
-// thread's first column half and first H half together, the scan is a
-// serial max over the thread's halves, log2(TPI) shuffles over the thread
-// totals and one more for the exclusive prefix. Shared memory per item:
-// its target columns as halves (code | deletion bit << 15, 2 n_cap bytes)
-// and its query code bytes (m_cap). What bounds it: issue slots (0.561 ms
-// at (640,128) B = 4096 on an H100 at 700 W, 1.57x the int32 kernel and
-// 3.7x the bound of two cells an instruction): the per-row shuffles, the
-// scan's tail over the thread totals and the row bookkeeping did not
-// halve with the lanes, and a - gc takes two instructions where the
-// int32 kernel's takes one.
+// nw_sweep16_warp_kernel<TPI, P, W> (W <= 256, K1's tiers): TPI threads
+// per item (a warp; a quarter of one, four items a warp, at W = 128:
+// geometry.sweep16_tpi), P pairs per thread (thread t owns lanes 2Pt ..
+// 2Pt + 2P - 1; lanes from W up to 2 P TPI are pad lanes held at neg),
+// everything of a row in registers and shuffles, as nw_sweep.cu's warp
+// kernel: one shuffle a row brings the next thread's first column half
+// and first H half together, the scan is a serial max over the thread's
+// halves, log2(TPI) shuffles over the thread totals and one more for the
+// exclusive prefix. H is kept less gc (hg = H - gc[j], the scan's own
+// space, as nw_sweep.cu's strip kernel keeps it): diag = hg + (s - d_j)
+// with d_j the column's deletion cost, up = above + gap, hg = the scan
+// of max(diag, up) with the fill; no gc register, no per-row gc add and
+// no a - gc a pair, and the score adds gc[n_cap] once. A lane outside
+// the matrix holds neg (the values right of column n_cap never reach a
+// lane inside it). Codes: a column half is the target code's one-hot
+// byte (A, C, G, T, N bits 0-4; PAD 0xA0, bit 5 and a PAD flag in bit
+// 7) | deletion bit << 15, a query row is stored as the shift 7 - code;
+// per pair and row: the column slide (one PRMT), equal codes from the
+// flag bit that shift brings to bit 7 (SHF, PRMT), PAD from the flag
+// (PRMT), the substitution by two LOP3 selects, the deletion cost (PRMT,
+// LOP3), diag (two VIADD), max(above + gap, diag) (one VIADDMNMX), the
+// scan, and the move [h != diag] + [h != max(diag, up)] (two XOR, two
+// VIMNMX, one add) accumulated into a pair word 8 rows at a time by one
+// multiply-add. The matrix-edge masks (j == 0, j outside [0, n_cap], pad
+// lanes) run only in rows where a lane of the warp touches an edge, the
+// row body instantiated twice behind a warp-uniform branch (__any_sync),
+// so that the interior rows carry no masks. What bounds it: issue slots
+// (~35 SASS instructions a pair and interior row, the row's overhead
+// included, against the bound's 7.5) and, with two warps a scheduler at
+// B = 4096, the latency of the row's chain of shuffles and scan steps.
+// Eight threads an item timed 10 % faster than sixteen, and the
+// warp-uniform edge branch 21 % faster than a per-thread one (H100 at
+// 700 W, benchmarks/kernel_ab.py in turns).
 //
 // nw_sweep16_block_kernel (W = 288 .. 1024, K2's tiers): one block per
 // item, one pair per thread (W / 2 threads rounded up to whole warps, so
 // W = 512 runs 256 threads), the int32 block kernel's two barriers a row
 // and block_incl_max on each thread's two lanes; a thread hands its first
-// column half and H half to the thread below through shared memory.
+// column half and H half to the thread below through shared memory. Per
+// pair and row: the column slide (one PRMT), the deletion cost (the sign
+// of the column half's high byte replicated by PRMT), the substitution
+// (an XOR of the column and query code bytes, whose PAD code 0x80 makes
+// the sign of the low byte flag a PAD against a base), diag, up, max, the
+// scan, and the moves from XORs with h and unsigned 16x2 minima.
+#include <type_traits>
+
 #include "sweep_scan.cuh"
 
 namespace {
@@ -65,6 +79,15 @@ constexpr uint32_t kPad16 = 0x80u;       // PAD in the int16 code bytes
 constexpr uint32_t kOnes2 = 0x00010001u;
 constexpr uint32_t kMoves3 = 0x00030003u;
 constexpr int kDp16Fill = -30000;        // the scan's fill (geometry.DP16_FILL)
+// the warp kernel's code bytes: a one-hot code (A, C, G, T, N bits 0-4,
+// PAD bit 5 and a PAD flag in bit 7) by prmt from these tables, and per
+// query row the shift 7 - code that brings the code's bit to bit 7
+constexpr uint32_t kOneHotLo = 0x08040201u;  // codes 0-3
+constexpr uint32_t kOneHotHi = 0x8040A010u;  // codes 4-7: N, PAD, 6, 7
+constexpr uint32_t kShiftLo = 0x04050607u;
+constexpr uint32_t kShiftHi = 0x00010203u;
+constexpr uint32_t kPadOneHot = 0xA0u;       // PAD in the one-hot bytes
+constexpr int kPadShift = 2;                 // 7 - PAD
 
 __device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b,
                                          uint32_t s) {
@@ -153,6 +176,13 @@ __device__ __forceinline__ uint32_t col_at16(const uint16_t* cs, int j,
   return (j >= 0 && j < n_cap) ? cs[j] : kPad16;
 }
 
+// the warp kernel's column half of target column j: one-hot code |
+// deletion bit << 15; PAD without a deletion cost outside the target
+__device__ __forceinline__ uint32_t col_oh(const uint16_t* cs, int j,
+                                           int n_cap) {
+  return (j >= 0 && j < n_cap) ? cs[j] : kPadOneHot;
+}
+
 // One item's codes into shared memory by `nt` threads (t = 0 .. nt-1):
 // the query as code bytes qs[m_cap], the target as column halves
 // cs2[n_cap / 2] (two columns a word).
@@ -180,6 +210,48 @@ __device__ void load_item16(const uint8_t* q4, const uint8_t* t4,
     for (int y = 0; y < 4; ++y) {
       const uint2 p = unpack8(w[y]);
       const uint32_t e0 = enc4(p.x), e1 = enc4(p.y);
+      o[4 * y] = prmt(e0, 0, 0x4140) | del2(bits >> (8 * y));
+      o[4 * y + 1] = prmt(e0, 0, 0x4342) | del2(bits >> (8 * y + 2));
+      o[4 * y + 2] = prmt(e1, 0, 0x4140) | del2(bits >> (8 * y + 4));
+      o[4 * y + 3] = prmt(e1, 0, 0x4342) | del2(bits >> (8 * y + 6));
+    }
+    uint4* dst = reinterpret_cast<uint4*>(cs2 + 16 * x);
+#pragma unroll
+    for (int y = 0; y < 4; ++y)
+      dst[y] = make_uint4(o[4 * y], o[4 * y + 1], o[4 * y + 2], o[4 * y + 3]);
+  }
+}
+
+// One item's codes into shared memory for the warp kernel by `nt` threads
+// (t = 0 .. nt-1): the query as one byte a row, the shift 7 - code
+// (qs[m_cap]), the target as column halves cs2[n_cap / 2] (two columns a
+// word), each the code's one-hot byte | deletion bit << 15. A code nibble
+// is itself a prmt selector, so one prmt maps four codes.
+__device__ void load_item16_onehot(const uint8_t* q4, const uint8_t* t4,
+                                   const uint8_t* dcb, int b, int m_cap,
+                                   int n_cap, uint8_t* qs, uint32_t* cs2,
+                                   int t, int nt) {
+  const uint32_t* qrow = reinterpret_cast<const uint32_t*>(
+      q4 + static_cast<size_t>(b) * (m_cap / 2));
+  for (int x = t; x < m_cap / 8; x += nt) {
+    const uint32_t v = qrow[x];  // rows 8x .. 8x + 7
+    *reinterpret_cast<uint2*>(qs + 8 * x) =
+        make_uint2(prmt(kShiftLo, kShiftHi, v),
+                   prmt(kShiftLo, kShiftHi, v >> 16));
+  }
+  const uint4* trow =
+      reinterpret_cast<const uint4*>(t4 + static_cast<size_t>(b) * (n_cap / 2));
+  const uint32_t* drow = reinterpret_cast<const uint32_t*>(
+      dcb + static_cast<size_t>(b) * (n_cap / 8));
+  for (int x = t; x < n_cap / 32; x += nt) {
+    const uint4 v = trow[x];
+    const uint32_t bits = drow[x];  // columns 32x .. 32x + 31
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    uint32_t o[16];
+#pragma unroll
+    for (int y = 0; y < 4; ++y) {
+      const uint32_t e0 = prmt(kOneHotLo, kOneHotHi, w[y]);
+      const uint32_t e1 = prmt(kOneHotLo, kOneHotHi, w[y] >> 16);
       o[4 * y] = prmt(e0, 0, 0x4140) | del2(bits >> (8 * y));
       o[4 * y + 1] = prmt(e0, 0, 0x4342) | del2(bits >> (8 * y + 2));
       o[4 * y + 2] = prmt(e1, 0, 0x4140) | del2(bits >> (8 * y + 4));
@@ -228,8 +300,11 @@ __device__ __forceinline__ void pairs_incl_max(uint32_t (&a)[P]) {
 }
 
 // W = 2 P TPI - (pad lanes) <= 256: TPI threads per item (see the note at
-// the top). The minimum of one block a SM frees ptxas from its occupancy
-// target, as in nw_sweep.cu's warp kernel.
+// the top). H is kept less gc, the scan's own space (hg = H - gc[j]): the
+// diag candidate adds the substitution less the column's deletion cost,
+// the up candidate the gap, and hg is the scan's result; a lane outside
+// the matrix holds neg. The minimum of one block a SM frees ptxas from
+// its occupancy target, as in nw_sweep.cu's warp kernel.
 template <int TPI, int P, int W>
 __global__ void __launch_bounds__(32 * kSweep16Warps, 1)
 nw_sweep16_warp_kernel(const uint8_t* __restrict__ q4,
@@ -251,7 +326,7 @@ nw_sweep16_warp_kernel(const uint8_t* __restrict__ q4,
   const int first = blockIdx.x * kSweep16Warps * IPW + warp * IPW;
   if (first >= B) return;  // the whole warp: nothing below syncs the block
   const int b_raw = first + lane / TPI;
-  const bool live = b_raw < B;    // a dummy item of a half-empty warp runs
+  const bool live = b_raw < B;    // a dummy item of a part-empty warp runs
   const int b = live ? b_raw : B - 1;  // the last item and stores nothing
   uint8_t* base = reinterpret_cast<uint8_t*>(wsmem16) +
                   static_cast<size_t>(slot) * (2 * n_cap + m_cap);
@@ -263,48 +338,56 @@ nw_sweep16_warp_kernel(const uint8_t* __restrict__ q4,
   const bool top = tl == TPI - 1;
   const bool has_pad = k0 + L > W;
 
-  load_item16(q4, t4, dcb, b, m_cap, n_cap, base + 2 * n_cap, cs2, tl, TPI);
+  load_item16_onehot(q4, t4, dcb, b, m_cap, n_cap, base + 2 * n_cap, cs2,
+                     tl, TPI);
   __syncwarp();
 
   const uint32_t match2 = dup16(match), mis2 = dup16(mismatch);
   const uint32_t gap2 = dup16(gap), neg2 = dup16(neg);
-  const uint32_t* bits = reinterpret_cast<const uint32_t*>(
-      dcb + static_cast<size_t>(b) * (n_cap / 8));
+  const uint32_t ngap2 = dup16(-gap), fill2 = dup16(kDp16Fill);
 
-  // row 0: H[0][j] = gc[j] inside the matrix, neg outside and on pad
-  // lanes; col[v] holds the column halves at j - 1 of row 0 (the slide
-  // brings row 1's); fill: the scan's fill on lanes k <= span - 2
-  uint32_t hp[P], gc[P], col[P], fill[P], acc[P], lo8[P];
+  // row 0: hg = 0 inside the matrix, neg outside and on pad lanes;
+  // col[v] holds the column halves at j - 1 of row 0 (the slide brings
+  // row 1's). The scan's fill reaches every lane k <= span - 2: all but
+  // at most the band's last lane (span >= W) and pad lanes, all in the
+  // thread's last pair (fill_last).
+  uint32_t hp[P], col[P], acc[P], lo8[P];
+  uint32_t fill_last = 0;
 #pragma unroll
   for (int v = 0; v < P; ++v) {
-    hp[v] = gc[v] = col[v] = fill[v] = 0;
+    hp[v] = col[v] = 0;
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
       const int k = k0 + 2 * v + u;
       const int jz = dlo + k;
-      const int g = gc_at16(bits, jz, n_cap, gap);
-      gc[v] = set_half(gc[v], u, g);
-      hp[v] = set_half(hp[v], u,
-                       (k < W && jz >= 0 && jz <= n_cap) ? g : neg);
-      col[v] = set_half(col[v], u, col_at16(cs, jz - 1, n_cap));
-      fill[v] = set_half(fill[v], u, k <= span - 2 ? kDp16Fill : -32768);
+      hp[v] = set_half(hp[v], u, (k < W && jz >= 0 && jz <= n_cap) ? 0 : neg);
+      col[v] = set_half(col[v], u, col_oh(cs, jz - 1, n_cap));
+      if (v == P - 1)
+        fill_last = set_half(fill_last, u,
+                             k <= span - 2 ? kDp16Fill : -32768);
     }
     acc[v] = lo8[v] = 0;
   }
   int32_t* mrow = moves + static_cast<size_t>(b) * (m_cap / 16) * W + k0;
 
-  for (int i = 1; i <= m_cap; ++i) {
-    const uint32_t q2 = qs[i - 1] * kOnes2;
+  // one row; `edge` (std::true_type) where a lane of the warp touches
+  // the matrix's edges (j < 1 or j > n_cap) or is a pad lane, so that the
+  // warp's interior rows carry no edge masks
+  auto row = [&](int i, auto edge_t) {
+    constexpr bool kEdge = decltype(edge_t)::value;
+    // the query code as a shift: a column half's one-hot bit of that
+    // code lands in bit 7 of its low byte; a column that is not PAD
+    // against a real base is mismatch unless the query is PAD
+    const uint32_t s = qs[i - 1];
+    const uint32_t other2 = s == kPadShift ? neg2 : mis2;
     const int jb = i + dlo + k0;  // column of the thread's first lane
-    const bool edge = has_pad || jb < 1 || jb + L - 1 > n_cap;
-    // the next thread's first column half (low) and first H half (high)
+    // the next thread's first column half (low) and first hg half (high)
     // of the row before
     const uint32_t nb =
         __shfl_down_sync(kFull, prmt(col[0], hp[0], 0x5410), 1, TPI);
     // the window slides one column a row: lane k takes lane k + 1's
     // column; the top lane reads its own
-    const uint32_t in =
-        top ? col_at16(cs, i + dlo + WP - 2, n_cap) : nb;
+    const uint32_t in = top ? col_oh(cs, i + dlo + WP - 2, n_cap) : nb;
     uint32_t above[P];
 #pragma unroll
     for (int v = 0; v + 1 < P; ++v) {
@@ -314,16 +397,24 @@ nw_sweep16_warp_kernel(const uint8_t* __restrict__ q4,
     col[P - 1] = prmt(col[P - 1], in, 0x5432);
     above[P - 1] = prmt(hp[P - 1], top ? neg2 : nb, 0x7632);
 
-    uint32_t diag[P], up[P], a[P];
+    // per pair: the substitution (equal codes: match; a PAD against a
+    // base: neg; else other2) less the deletion cost of the column, the
+    // diag candidate, and the best of diag and up (own)
+    uint32_t diag[P], own[P], a[P];
 #pragma unroll
     for (int v = 0; v < P; ++v) {
-      gc[v] = __vadd2(gc[v], high_sign(col[v]) & gap2);
-      diag[v] = __vadd2(hp[v], subst2(col[v], q2, match2, mis2, neg2));
-      up[v] = __vadd2(above[v], gap2);
-      a[v] = __vmaxs2(diag[v], up[v]);
+      const uint32_t eq = prmt(col[v] << s, 0, 0xAA88);
+      const uint32_t pad = prmt(col[v], 0, 0xAA88);
+      const uint32_t sub = (eq & match2) | (~eq & ((pad & neg2) |
+                                                   (~pad & other2)));
+      const uint32_t del = high_sign(col[v]) & ngap2;
+      diag[v] = __vadd2(hp[v], __vadd2(sub, del));
+      own[v] = __viaddmax_s16x2(above[v], gap2, diag[v]);
+      a[v] = own[v];
     }
-    uint32_t out[P], zero[P], inv[P];
-    if (edge) {
+    uint32_t out[P], inv[P];
+    if constexpr (kEdge) {
+      uint32_t zero[P];
       edge_masks<P>(jb, k0, W, n_cap, out, zero, inv);
       const uint32_t ig2 = dup16(i * gap);
 #pragma unroll
@@ -332,8 +423,6 @@ nw_sweep16_warp_kernel(const uint8_t* __restrict__ q4,
         a[v] = (a[v] & ~out[v]) | (neg2 & out[v]);
       }
     }
-#pragma unroll
-    for (int v = 0; v < P; ++v) a[v] = __vsub2(a[v], gc[v]);
 
     // max-plus prefix scan over the band: the thread's lanes, the thread
     // totals (sign-extended high half of the last pair) across the item's
@@ -341,20 +430,25 @@ nw_sweep16_warp_kernel(const uint8_t* __restrict__ q4,
     pairs_incl_max<P>(a);
     int tot = static_cast<int>(a[P - 1]) >> 16;
 #pragma unroll
-    for (int s = 1; s < TPI; s <<= 1)
-      tot = max(tot, __shfl_up_sync(kFull, tot, s, TPI));
+    for (int d = 1; d < TPI; d <<= 1)
+      tot = max(tot, __shfl_up_sync(kFull, tot, d, TPI));
     const int excl = __shfl_up_sync(kFull, tot, 1, TPI);
     const uint32_t pre = tl ? dup16(excl) : kMin2;
 
+    // moves: DIAG where h == diag, UP where h == own (up won), else LEFT:
+    // h != own implies h > own >= diag, so the move is
+    // [h != diag] + [h != own]
     const int p = (i - 1) & 15;
     const uint32_t shift = 1u << (2 * (p & 7));
 #pragma unroll
     for (int v = 0; v < P; ++v) {
-      uint32_t h = __vadd2(__vimax3_s16x2(a[v], pre, fill[v]), gc[v]);
-      if (edge) h = (h & ~out[v]) | (neg2 & out[v]);
-      uint32_t mv = moves2(h, diag[v], up[v]);
-      if (edge) mv |= inv[v] & kMoves3;
-      acc[v] += mv * shift;
+      uint32_t h = __vimax3_s16x2(a[v], pre, v == P - 1 ? fill_last : fill2);
+      if constexpr (kEdge) h = (h & ~out[v]) | (neg2 & out[v]);
+      uint32_t mv = __vminu2(h ^ diag[v], kOnes2) +
+                    __vminu2(h ^ own[v], kOnes2);
+      if constexpr (kEdge) mv |= inv[v] & kMoves3;
+      // one IMAD: written as mv * shift the compiler shifts and adds
+      asm("mad.lo.u32 %0, %1, %2, %0;" : "+r"(acc[v]) : "r"(mv), "r"(shift));
       hp[v] = h;
     }
     if (p == 7) {
@@ -389,11 +483,25 @@ nw_sweep16_warp_kernel(const uint8_t* __restrict__ q4,
         }
       }
     }
+  };
+
+  for (int i = 1; i <= m_cap; ++i) {
+    const int jb = i + dlo + k0;
+    if (__any_sync(kFull, has_pad || jb < 1 || jb + L - 1 > n_cap))
+      row(i, std::true_type{});
+    else
+      row(i, std::false_type{});
   }
+  // the end lane's column is n_cap: H = hg + gc[n_cap], wrapped to int16
+  // as the pair arithmetic wraps
   const int k_end = n_cap - m_cap - dlo;
+  const int gc_end = gc_at16(reinterpret_cast<const uint32_t*>(
+                                 dcb + static_cast<size_t>(b) * (n_cap / 8)),
+                             n_cap, n_cap, gap);
 #pragma unroll
   for (int x = 0; x < L; ++x)
-    if (live && k0 + x == k_end) score[b] = half_at(hp[x >> 1], x & 1);
+    if (live && k0 + x == k_end)
+      score[b] = static_cast<int16_t>(half_at(hp[x >> 1], x & 1) + gc_end);
 }
 
 // W = 288 .. 1024: one block per item, thread t owns lanes 2t and 2t + 1
@@ -495,9 +603,9 @@ nw_sweep16_block_kernel(const uint8_t* __restrict__ q4,
 // threads per block of the block kernel: one a pair, whole warps
 static int block16_threads(int W) { return (W + 63) / 64 * 32; }
 
-// threads per item of the warp kernel (geometry.sweep16_tpi): 16, two
+// threads per item of the warp kernel (geometry.sweep16_tpi): 8, four
 // items a warp, at W = 128; 32 at the other widths
-static int warp16_tpi(int W) { return W == 128 ? 16 : 32; }
+static int warp16_tpi(int W) { return W == 128 ? 8 : 32; }
 
 }  // namespace
 
@@ -566,7 +674,7 @@ extern "C" int rtt_nw_sweep16(const uint8_t* q4, const uint8_t* t4,
     case 32: RTT_WARP16(32, 1, 32)
     case 64: RTT_WARP16(32, 1, 64)
     case 96: RTT_WARP16(32, 2, 96)
-    case 128: RTT_WARP16(16, 4, 128)
+    case 128: RTT_WARP16(8, 8, 128)
     case 160: RTT_WARP16(32, 3, 160)
     case 192: RTT_WARP16(32, 3, 192)
     case 224: RTT_WARP16(32, 4, 224)

@@ -184,10 +184,11 @@ def sweep_dp16(m_cap: int, n_cap: int, w_band: int, match: int,
 
 
 def sweep16_tpi(w_band: int) -> int:
-    """Threads per item of the int16 warp kernel (W <= 256): 16, two items
-    a warp, at W = 128, where that layout timed faster than one warp an
-    item on the H100 (PERF.md); 32 at the other widths."""
-    return 16 if w_band == 128 else 32
+    """Threads per item of the int16 warp kernel (W <= 256): 8, four items
+    a warp and eight pairs a thread, at W = 128, so that the row's
+    shuffles and bookkeeping are shared by more pairs (PERF.md); 32 at
+    the other widths."""
+    return 8 if w_band == 128 else 32
 
 
 def sweep16_threads(w_band: int) -> int:

@@ -16,6 +16,7 @@ card, which NCCL refuses.
 
 Entry points:
   initialize()           -- torch.distributed.init_process_group("gloo")
+  shutdown()             -- every process at one point, then the group gone
   is_active()            -- more than one process in the group
   shard_range(n)         -- this process's contiguous [lo, hi) of n items
   local_devices()        -- the CUDA devices this process owns
@@ -109,6 +110,22 @@ def barrier() -> None:
     """Wait for every process of an active group (no-op otherwise)."""
     if is_active():
         tdist.barrier()
+
+
+def shutdown(wait: bool = True) -> None:
+    """Take the group down before the process exits: with `wait`, behind a
+    barrier, so that no process leaves while another still talks to it;
+    then destroy_process_group. A group left to the interpreter's exit is
+    torn down after Python has gone, and there gloo can abort the process
+    (SIGABRT, "terminate called without an active exception", after the
+    process wrote its output) once a peer has exited first. An error path
+    passes wait=False: its peers may never reach the barrier. Does nothing
+    when no group is up."""
+    if not tdist.is_initialized():
+        return
+    if wait and is_active():
+        tdist.barrier()
+    tdist.destroy_process_group()
 
 
 def allgather_blob(local: np.ndarray) -> list[np.ndarray]:

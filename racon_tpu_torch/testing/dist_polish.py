@@ -15,7 +15,8 @@ consensus stage polished (where the stage counts them), the seconds of
 initialize() and polish(), and of those the seconds this process took
 to build or load the kernels (at their first launch, inside
 initialize()). Rank 0 writes the FASTA to DIR/polished.fasta;
-every other rank must get no records. --device cpu runs the cuda backend
+every other rank must get no records. Every rank then takes the group
+down together (parallel/dist.shutdown) before it exits. --device cpu runs the cuda backend
 on the kernels' plain versions and --cpu-mesh K pins a mesh of K CPU
 devices (parallel/mesh.set_active_mesh), the tests' way to run dist x
 mesh without a GPU.
@@ -54,10 +55,21 @@ def main(argv: list[str] | None = None) -> int:
     if args.cpu_mesh:
         mesh.set_active_mesh(["cpu"] * args.cpu_mesh)
 
+    try:
+        rc = _polish_and_report(args, racon_argv)
+    except BaseException:
+        dist.shutdown(wait=False)
+        raise
+    dist.shutdown()
+    return rc
+
+
+def _polish_and_report(args, racon_argv) -> int:
     import torch
 
     from .. import cli
     from ..kernels import LAUNCHES, build, reset_launches
+    from ..parallel import dist, mesh
     from ..polisher import create_polisher
 
     pargs = cli.parser().parse_args(racon_argv)

@@ -169,14 +169,10 @@ def make_dataset(workdir, genome_bp, read_len, coverage, err, seed=11,
         sub_mask = (u >= ins_p + del_p) & (u < err)
         out = src.copy()
         out[sub_mask] = rng.choice(ACGT, int(sub_mask.sum()))
-        parts = []
-        last = 0
-        for p in np.flatnonzero(ins_mask):
-            parts.append(out[last : p + 1])
-            parts.append(rng.choice(ACGT, 1))
-            last = p + 1
-        parts.append(out[last:])
-        read = np.concatenate(parts)
+        # a random base after each insertion point: one draw of them all
+        # takes the generator's stream exactly as a draw per base would
+        ins_at = np.flatnonzero(ins_mask)
+        read = np.insert(out, ins_at + 1, rng.choice(ACGT, len(ins_at)))
         # apply deletions on a mask projected through insertions is
         # fiddly; approximate by deleting from the assembled read
         dmask = np.ones(len(read), bool)

@@ -105,12 +105,13 @@ def test_strip_sweep_matches_plain(gpu, cap, w, B, scores):
 
 @pytest.mark.parametrize("cap,w,B,scores", [
     (256, 128, 4097, (5, -4, -8)), (640, 128, 4097, (5, -4, -8)),
+    (640, 128, 4096, (5, -4, -8)), (256, 128, 13, (5, -4, -8)),
     (256, 96, 130, (5, -4, -8)), (320, 160, 130, (5, -4, -8)),
     (512, 256, 1025, (3, -5, -4)), (2560, 512, 48, (0, -1, -1)),
     (768, 288, 48, (5, -4, -8))])
 def test_sweep16_matches_plain_and_int32(gpu, monkeypatch, cap, w, B, scores):
-    """RACON_TPU_DP16=1: the int16 warp kernel (W <= 256; at W = 128 two
-    items a warp, whose last warp runs half empty at odd B) and block
+    """RACON_TPU_DP16=1: the int16 warp kernel (W <= 256; at W = 128 four
+    items a warp, whose last warp runs part empty at B = 4097 and 13) and block
     kernel (W = 288, 512) against the int16 plain version and the int32
     kernel, byte for byte, with _packed's all-PAD and out-of-band items;
     nw_sweep launches the int16 kernel and not the int32 one, and
@@ -409,13 +410,16 @@ def _panels(seed, B, m_cap, n_cap, w):
 
 
 @pytest.mark.parametrize("m_cap,n_cap,w", [(640, 640, 128),
-                                           (256, 512, 128)])
+                                           (256, 512, 128), (512, 512, 256),
+                                           (256, 256, 96), (640, 640, 512)])
 def test_panel_sweep_and_ablation_variants_match_plain(gpu, m_cap, n_cap,
                                                        w):
     """K7 (nw_sweep_t) and every K8 variant (run_variant) against their
-    plain versions (nomoves: the score only), at the harness's shape and
-    with the band right of the diagonal (dlo = 192); at equal caps K7
-    against K1 (nw_sweep) on the same items packed."""
+    plain versions (nomoves: the score only), on the warp kernel at the
+    harness's shape, with the band right of the diagonal (dlo = 192), at
+    W = 256 (eight lanes a thread) and W = 96 (pad lanes), and on the
+    block kernel at W = 512; at equal caps K7 against K1 (nw_sweep) on
+    the same items packed."""
     from racon_tpu_torch.benchmarks import profile_ablate as pa
 
     geo = dict(m_cap=m_cap, n_cap=n_cap, w_band=w)

@@ -155,15 +155,15 @@ def test_sweep_dp16_only_up_to_1024(monkeypatch):
 
 
 @pytest.mark.parametrize("cap,w,B,blocks,threads,smem", [
-    (640, 128, 4096, 512, 128, 8 * (640 + 1280)),
-    (256, 128, 4097, 513, 128, 8 * (256 + 512)),
+    (640, 128, 4096, 256, 128, 16 * (640 + 1280)),
+    (256, 128, 4097, 257, 128, 16 * (256 + 512)),
     (512, 256, 4097, 1025, 128, 4 * (512 + 1024)),
     (384, 96, 5, 2, 128, 4 * (384 + 768)),
     (2560, 512, 1024, 1024, 256, (2 * 256 + 32) * 4 + 2560 + 5120),
     (768, 288, 3, 3, 160, (2 * 160 + 32) * 4 + 768 + 1536)])
 def test_sweep16_launch(cap, w, B, blocks, threads, smem):
-    """Four warps a block in the int16 warp kernel, two items a warp at
-    W = 128 (8 a block) and one elsewhere, each item its query bytes and
+    """Four warps a block in the int16 warp kernel, four items a warp at
+    W = 128 (16 a block) and one elsewhere, each item its query bytes and
     16-bit column halves; the block kernel one pair of lanes a thread,
     rounded up to whole warps."""
     assert geometry.sweep_launch(B, cap, cap, w, dp16=True) == (

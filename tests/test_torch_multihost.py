@@ -12,7 +12,10 @@ checks):
 - `python -m torch.distributed.run --standalone --nproc-per-node 2 -m
   racon_tpu_torch.cli --distributed --backend native`, and the same
   with RACON_TPU_DISTRIBUTED=1: rank 0's stdout is exactly the FASTA,
-  the other rank prints nothing.
+  the other rank prints nothing;
+- dist_polish's main and the CLI's distributed main leave no process
+  group behind when they return: a group left to the interpreter's exit
+  let gloo abort a rank there (SIGABRT after its report was written).
 """
 
 import contextlib
@@ -20,6 +23,7 @@ import io
 import json
 import os
 import signal
+import socket
 import subprocess
 import sys
 
@@ -181,3 +185,66 @@ def test_torchrun_cli_prints_fasta_on_rank0_only(tmp_path, switch):
     assert stdout["1"] == b""
     assert stdout["0"] == _polish(create_polisher, paths,
                                   PolisherConfig(backend="native", **CFG))
+
+
+# each rank: the entry point's main, then whether a process group is
+# still up when it has returned (the last line of its stderr: the CLI's
+# distributed main points fd 1 at stderr and keeps the FASTA apart)
+_LEAVE = """
+import sys, torch.distributed
+from racon_tpu_torch import cli
+from racon_tpu_torch.testing import dist_polish
+entry = dist_polish if sys.argv[1] == "dist_polish" else cli
+rc = entry.main(sys.argv[2:])
+print("group still up:", torch.distributed.is_initialized(),
+      file=sys.stderr, flush=True)
+sys.exit(rc)
+"""
+
+
+@pytest.mark.parametrize("entry", ["dist_polish", "cli"])
+def test_ranks_leave_the_group_before_exit(tmp_path, entry):
+    """Both ranks of dist_polish (file:// rendezvous) and of the CLI with
+    --distributed (env:// on a free localhost port, as torchrun sets it
+    up) take the gloo group down before main returns, so no rank's group
+    is torn down at interpreter exit; their FASTA is still the
+    single-process one."""
+    paths = _dataset(tmp_path)
+    env = _env()
+    if entry == "dist_polish":
+        init = (tmp_path / "rendezvous").as_uri()
+        argvs = [["--report", str(tmp_path / "report"), "--init-method",
+                  init, "--world-size", "2", "--rank", str(r), "--",
+                  "--backend", "native", *ARGV, *paths] for r in range(2)]
+        envs = [env, env]
+    else:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        argvs = [["--distributed", "--backend", "native", *ARGV, *paths]] * 2
+        envs = [dict(env, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                     WORLD_SIZE="2", RANK=str(r)) for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, "-c", _LEAVE, entry, *argv],
+                              env=e, cwd=REPO, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE,
+                              start_new_session=True)
+             for argv, e in zip(argvs, envs)]
+    outs = []
+    try:
+        for p in procs:
+            out, err = p.communicate(timeout=240)
+            assert p.returncode == 0, err.decode()[-3000:]
+            assert err.endswith(b"group still up: False\n"), \
+                err.decode()[-3000:]
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, signal.SIGKILL)
+                p.wait()
+    want = _polish(create_polisher, paths,
+                   PolisherConfig(backend="native", **CFG))
+    if entry == "dist_polish":
+        assert (tmp_path / "report" / "polished.fasta").read_bytes() == want
+    else:
+        assert outs == [want, b""]

@@ -809,9 +809,172 @@ def _sweep16_model(q4, t4, dcb, *, m_cap, n_cap, w_band, match, mismatch,
         np.int32)
 
 
+# The warp kernel (W <= 256) keeps H less gc, codes one-hot: its own model.
+
+_ONEHOT = (0x08040201, 0x8040A010)   # one-hot bytes of codes 0-3, 4-7
+_SHIFT = (0x04050607, 0x00010203)    # 7 - code
+_PAD_SHIFT = 2
+
+
+def _prmt_table(a, b, sel):
+    """prmt.b32 with a scalar table b:a and an array selector whose
+    nibbles are below 8 (codes): byte n of the result is table byte
+    (nibble n of sel)."""
+    table = [(a >> (8 * x)) & 255 for x in range(4)] + \
+            [(b >> (8 * x)) & 255 for x in range(4)]
+    table = np.array(table, np.int64)
+    sel = _u32(sel)
+    out = np.zeros(sel.shape, np.int64)
+    for n in range(4):
+        nib = (sel >> (4 * n)) & 15
+        assert (nib < 8).all()
+        out |= table[nib] << (8 * n)
+    return out
+
+
+def _slice16_onehot(q4, t4, dcb):
+    """What load_item16_onehot writes to each item's shared memory: per
+    query row the shift byte 7 - code, by prmt of the shift table with the
+    packed nibble word as its selector; per target column the half
+    one-hot code | deletion bit << 15 (PAD: 0xA0)."""
+    words = lambda a: a.astype(np.uint8).view("<u4").astype(np.int64)
+    qw, tw, dw = words(q4), words(t4), words(dcb)
+    B = q4.shape[0]
+    qs = np.stack([_prmt_table(*_SHIFT, qw), _prmt_table(*_SHIFT, qw >> 16)],
+                  -1)
+    qs = _u32(qs).astype("<u4").view(np.uint8).reshape(B, -1).astype(
+        np.int64)
+    del2 = lambda d: ((d & 1) << 15) | ((d & 2) << 30)
+    lo, hi = _prmt_table(*_ONEHOT, tw), _prmt_table(*_ONEHOT, tw >> 16)
+    bits = np.repeat(dw, 4, axis=1) >> (8 * (np.arange(tw.shape[1]) % 4))
+    cs = np.stack([_prmt(lo, 0, 0x4140) | del2(bits),
+                   _prmt(lo, 0, 0x4342) | del2(bits >> 2),
+                   _prmt(hi, 0, 0x4140) | del2(bits >> 4),
+                   _prmt(hi, 0, 0x4342) | del2(bits >> 6)], -1)
+    cs = _u32(cs).reshape(B, -1)
+    return qs, np.stack(_halves(cs), -1).reshape(B, -1)
+
+
+def _viaddmax2(a, b, c):
+    return _lanewise(lambda x, y, z: np.maximum(_s16(x + y), _s16(z)),
+                     a, b, c)
+
+
+def _sweep16_warp_model(q4, t4, dcb, *, m_cap, n_cap, w_band, match,
+                        mismatch, gap, tpi, pairs, broken=None):
+    """numpy model of nw_sweep16_warp_kernel: tpi threads per item, `pairs`
+    s16x2 words per thread, lanes from W to 2 pairs tpi pad lanes; H kept
+    less gc (hg), NEG-free codes: equal codes from the column's one-hot
+    bit shifted to bit 7 by the query row's shift, PAD from bit 7, the
+    deletion cost from bit 15; own = max(above + gap, diag); the scan over
+    the thread's halves and the thread totals; the fill on the thread's
+    last pair by lane, on the others uniform; the move [h != diag] +
+    [h != own]; the score hg + gc[n_cap] in int16. `broken` drops a
+    piece, for the mutation cases: "del" the column's deletion cost,
+    "pad" the PAD test (a PAD column against a base a mismatch)."""
+    import torch
+
+    W, T, P = w_band, tpi, pairs
+    L, WP = 2 * P, 2 * P * tpi
+    B = q4.shape[0]
+    dt, neg, fill_v = geometry.dp_consts(m_cap, n_cap, match, mismatch, gap)
+    assert dt == torch.int16
+    dlo = geometry.band_dlo(m_cap, n_cap, W)
+    qs, cs = _slice16_onehot(q4, t4, dcb)
+    span = geometry.scan_span(W)
+    k = np.arange(WP)
+    k0 = L * np.arange(T)[None, :]               # (1, T)
+    pad_thread = k0 + L > W
+
+    def col_at(j):
+        return np.where((j >= 0) & (j < n_cap),
+                        cs[:, np.clip(j, 0, n_cap - 1)], 0xA0)
+
+    def pairs_of(lanes):                          # (B, WP) -> (B, T, P)
+        return _pair(lanes[..., 0::2], lanes[..., 1::2]).reshape(B, T, P)
+
+    jz = dlo + k
+    hp = pairs_of(np.broadcast_to(
+        np.where((k < W) & (jz >= 0) & (jz <= n_cap), 0, neg), (B, WP)))
+    col = pairs_of(col_at(jz - 1))
+    fill_lanes = np.where(k <= span - 2, fill_v, -32768)
+    fill = np.broadcast_to(_dup16(fill_v), (B, T, P)).copy()
+    fill[:, :, -1] = pairs_of(np.broadcast_to(fill_lanes, (B, WP)))[:, :, -1]
+    acc = np.zeros((B, T, P), np.int64)
+    lo8 = np.zeros_like(acc)
+    match2, mis2, gap2, neg2 = (_dup16(x) for x in (match, mismatch, gap,
+                                                    neg))
+    ngap2 = _dup16(-gap)
+    moves = np.zeros((B, m_cap // 16, WP), np.int64)
+    for i in range(1, m_cap + 1):
+        sh = qs[:, i - 1][:, None, None]
+        other2 = np.where(sh == _PAD_SHIFT, neg2, mis2)
+        jb = i + dlo + k0                          # (1, T)
+        edge = (pad_thread | (jb < 1) | (jb + L - 1 > n_cap))[:, :, None]
+        mine = _prmt(col[:, :, 0], hp[:, :, 0], 0x5410)
+        nb = np.concatenate([mine[:, 1:], mine[:, -1:]], 1)  # shfl_down 1
+        top = np.arange(T) == T - 1
+        col_in = np.where(top, col_at(np.full(1, i + dlo + WP - 2))[:, :1],
+                          nb)
+        above = np.empty_like(hp)
+        above[:, :, :-1] = _prmt(hp[:, :, :-1], hp[:, :, 1:], 0x5432)
+        above[:, :, -1] = _prmt(hp[:, :, -1], np.where(top, neg2, nb),
+                                0x7632)
+        col = np.concatenate([_prmt(col[:, :, :-1], col[:, :, 1:], 0x5432),
+                              _prmt(col[:, :, -1:], col_in[:, :, None],
+                                    0x5432)], 2)
+        eq = _prmt(_u32(col << sh), 0, 0xAA88)
+        pad = _prmt(col, 0, 0xAA88)
+        if broken == "pad":
+            pad = np.zeros_like(pad)
+        sub = (eq & match2) | (~eq & ((pad & neg2) | (~pad & other2)))
+        dele = _prmt(col, 0, 0xBB99) & ngap2
+        if broken == "del":
+            dele = np.zeros_like(dele)
+        diag = _vadd2(hp, _vadd2(_u32(sub), dele))
+        own = _viaddmax2(above, gap2, diag)
+        a = own.copy()
+        j = (jb[:, :, None] + np.arange(L)).reshape(1, T, P, 2)
+        padl = (k0[:, :, None] + np.arange(L)).reshape(1, T, P, 2) >= W
+        half = lambda m: _pair(np.where(m[..., 0], _M16, 0),
+                               np.where(m[..., 1], _M16, 0))
+        out = np.where(edge, half(padl | (j < 0) | (j > n_cap)), 0)
+        zero = np.where(edge, half(~padl & (j == 0)), 0)
+        inv = np.where(edge, half(padl | (j < 1) | (j > n_cap)), 0)
+        a = (a & ~zero) | (_dup16(i * gap) & zero)
+        a = (a & ~out) | (neg2 & out)
+        a[:, :, 0] = _vmaxs2(a[:, :, 0], _prmt(a[:, :, 0], 0, 0x1010))
+        for v in range(1, P):
+            a[:, :, v] = _vmaxs2(a[:, :, v], _prmt(a[:, :, v], 0, 0x1010),
+                                 _prmt(a[:, :, v - 1], 0, 0x3232))
+        tot = np.maximum.accumulate(_s16(a[:, :, -1] >> 16), axis=1)
+        pre = np.concatenate([np.full((B, 1), 0x80008000),
+                              _dup16(tot[:, :-1])], 1)
+        h = _vmaxs2(a, pre[:, :, None], fill)
+        h = (h & ~out) | (neg2 & out)
+        mv = _vminu2(h ^ diag, 0x00010001) + _vminu2(h ^ own, 0x00010001)
+        mv |= inv & 0x00030003
+        p = (i - 1) % 16
+        acc = _u32(acc + mv * (1 << (2 * (p % 8))))
+        hp = h
+        if p == 7:
+            lo8, acc = acc, np.zeros_like(acc)
+        elif p == 15:
+            w = np.stack([_prmt(lo8, acc, 0x5410), _prmt(lo8, acc, 0x7632)],
+                         -1)
+            moves[:, (i - 1) // 16] = w.reshape(B, WP)
+            acc = np.zeros_like(acc)
+    lanes = np.stack(_halves(hp), -1).reshape(B, WP)
+    gc_end = gap * ((cs >> 15) & 1).sum(1)
+    moves = moves[:, :, :W]
+    moves = np.where(moves >= 2 ** 31, moves - 2 ** 32, moves)
+    score = _s16(lanes[:, n_cap - m_cap - dlo] + gc_end)
+    return moves.astype(np.int32), score.astype(np.int32)
+
+
 @pytest.mark.parametrize("cap,w,tpi,pairs,scores", [
-    (256, 128, 16, 4, (5, -4, -8)),    # K1's (256,128), two items a warp
-    (640, 128, 16, 4, (5, -4, -8)),    # K1's (640,128)
+    (256, 128, 8, 8, (5, -4, -8)),     # K1's (256,128), four items a warp
+    (640, 128, 8, 8, (5, -4, -8)),     # K1's (640,128)
     (384, 192, 32, 3, (5, -4, -8)),    # one warp an item, three pairs
     (512, 256, 32, 4, (3, -5, -4)),    # W = 256 (eligible at cmax 5)
     (256, 96, 32, 2, (5, -4, -8)),     # pad lanes: whole threads
@@ -823,10 +986,11 @@ def _sweep16_model(q4, t4, dcb, *, m_cap, n_cap, w_band, match, mismatch,
 def test_sweep16_model_matches_plain(monkeypatch, cap, w, tpi, pairs,
                                      scores):
     """The int16 kernels' packed layout against nw_sweep_plain under
-    RACON_TPU_DP16=1 (int16 H), at the warp kernel's shapes (16 threads
-    an item at W = 128, 32 elsewhere) and the block kernel's (one pair a
-    thread), with make_batch's all-PAD
-    and out-of-band items and 30% free deletion columns."""
+    RACON_TPU_DP16=1 (int16 H), at the warp kernel's shapes (8 threads
+    an item at W = 128, 32 elsewhere: _sweep16_warp_model, H less gc and
+    one-hot codes) and the block kernel's (one pair a thread:
+    _sweep16_model, H with gc), with make_batch's all-PAD and out-of-band
+    items and 30% free deletion columns."""
     monkeypatch.setenv("RACON_TPU_DP16", "1")
     assert geometry.sweep_dp16(cap, cap, w, *scores)
     assert (tpi, pairs) == (geometry.sweep16_threads(w), -(-w // (2 * tpi)))
@@ -837,9 +1001,9 @@ def test_sweep16_model_matches_plain(monkeypatch, cap, w, tpi, pairs,
     geo = dict(m_cap=cap, n_cap=cap, w_band=w, match=scores[0],
                mismatch=scores[1], gap=scores[2])
     want_mv, want_sc = port.nw_sweep_plain(b.q4, b.t4, b.dcb, **geo)
-    got_mv, got_sc = _sweep16_model(b.q4.numpy(), b.t4.numpy(),
-                                    b.dcb.numpy(), **geo, tpi=tpi,
-                                    pairs=pairs)
+    model = _sweep16_warp_model if w <= 256 else _sweep16_model
+    got_mv, got_sc = model(b.q4.numpy(), b.t4.numpy(), b.dcb.numpy(), **geo,
+                           tpi=tpi, pairs=pairs)
     assert np.array_equal(got_mv, want_mv.numpy())
     assert np.array_equal(got_sc, want_sc.numpy())
 
@@ -856,3 +1020,73 @@ def test_slice16_bytes():
     assert np.array_equal(qs, np.where(q8 == PAD, 0x80, q8))
     assert np.array_equal(cs, np.where(t8 == PAD, 0x80, t8)
                           | ((dc8 != 0) << 15))
+
+
+@pytest.mark.parametrize("cap,w,B", [(640, 128, 13), (256, 128, 4097),
+                                     (320, 160, 6), (256, 96, 5)])
+def test_sweep16_warp_model_half_empty_and_edges(monkeypatch, cap, w, B):
+    """The int16 warp model at both W = 128 tiers with a part-empty last
+    warp (B = 13 and the stage's 4097: four items a warp, the last warp's
+    dummy slots running the last item again, as the kernel's do, and
+    compared nowhere), and with pad lanes (W = 160: a pad pair in the top
+    threads; W = 96: whole pad threads); every item's moves and score
+    against nw_sweep_plain under RACON_TPU_DP16=1, with all-PAD,
+    out-of-band and free-deletion items."""
+    monkeypatch.setenv("RACON_TPU_DP16", "1")
+    tpi = geometry.sweep16_threads(w)
+    pairs = -(-w // (2 * tpi))
+    rng = np.random.default_rng(B + cap)
+    q8, t8, dc8, m, n = make_batch(rng, B, cap, -8)
+    ipw = 32 // tpi
+    take = np.minimum(np.arange(-(-B // ipw) * ipw), B - 1)
+    q4, t4, dcb = pack_codes4(q8), pack_codes4(t8), pack_delbits(dc8)
+    b = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap, device="cpu")
+    geo = dict(m_cap=cap, n_cap=cap, w_band=w, match=5, mismatch=-4, gap=-8)
+    want_mv, want_sc = port.nw_sweep_plain(b.q4, b.t4, b.dcb, **geo)
+    got_mv, got_sc = _sweep16_warp_model(q4[take], t4[take], dcb[take],
+                                         **geo, tpi=tpi, pairs=pairs)
+    assert len(take) > B or B % ipw == 0
+    assert np.array_equal(got_mv[:B], want_mv.numpy())
+    assert np.array_equal(got_sc[:B], want_sc.numpy())
+
+
+@pytest.mark.parametrize("broken", ["del", "pad"])
+def test_sweep16_warp_model_broken_differs(monkeypatch, broken):
+    """The int16 warp model without the column's deletion cost in diag, or
+    without the PAD test, no longer matches nw_sweep_plain: the model
+    tests see those pieces."""
+    monkeypatch.setenv("RACON_TPU_DP16", "1")
+    rng = np.random.default_rng(21)
+    q8, t8, dc8, m, n = make_batch(rng, 12, 256, -8)
+    b = to_device(pack_codes4(q8), pack_codes4(t8), pack_delbits(dc8), m, n,
+                  m_cap=256, n_cap=256, device="cpu")
+    geo = dict(m_cap=256, n_cap=256, w_band=128, match=5, mismatch=-4,
+               gap=-8)
+    want_mv, _ = port.nw_sweep_plain(b.q4, b.t4, b.dcb, **geo)
+    got_mv, _ = _sweep16_warp_model(b.q4.numpy(), b.t4.numpy(),
+                                    b.dcb.numpy(), **geo, tpi=8, pairs=8,
+                                    broken=broken)
+    assert not np.array_equal(got_mv, want_mv.numpy())
+
+
+def test_slice16_onehot_bytes():
+    """Shared memory of one int16 warp-kernel item: per query row the
+    shift 7 - code, and per column the one-hot half (A..N bits 0-4, PAD
+    0xA0) | deletion bit << 15; the kernel's tables and PAD shift are
+    these."""
+    rng = np.random.default_rng(8)
+    q8 = rng.integers(0, 6, (3, 64)).astype(np.int8)
+    t8 = rng.integers(0, 6, (3, 128)).astype(np.int8)
+    dc8 = np.where(rng.random((3, 128)) < 0.5, -8, 0).astype(np.int8)
+    qs, cs = _slice16_onehot(pack_codes4(q8), pack_codes4(t8),
+                             pack_delbits(dc8))
+    q8, t8 = q8.astype(np.int64), t8.astype(np.int64)
+    assert np.array_equal(qs, 7 - q8)
+    onehot = np.where(t8 == PAD, 0xA0, 1 << t8)
+    assert np.array_equal(cs, onehot | ((dc8 != 0) << 15))
+    src = (_CSRC / "nw_sweep16.cu").read_text()
+    for name, value in (("kOneHotLo", _ONEHOT[0]), ("kOneHotHi", _ONEHOT[1]),
+                        ("kShiftLo", _SHIFT[0]), ("kShiftHi", _SHIFT[1])):
+        assert f"{name} = 0x{value:08X}u;" in src
+    assert f"kPadShift = {_PAD_SHIFT};" in src
+    assert "case 128: RTT_WARP16(8, 8, 128)" in src
