@@ -32,9 +32,11 @@ Phases (each must pass, or the script exits non-zero):
      sweep's other tiers (256,128) B = 4097
      and (1280,256) B = 1024 with the RLE walk; then under
      RACON_TPU_DP16=1 the int16 sweeps (K1-16 at (640,128) B = 4096 and
-     (256,128) B = 4097, K2-16 at (2560,512) B = 1024 with the align
-     scores) against the int32 kernels on every item and their plain
-     versions, timed in turns with them (and K1-16's other warp layout);
+     (256,128) B = 4097; K2-16, the int16 strip kernel, at (2560,512) B =
+     1024 and (5120,1024) B = 8 with the align scores and (640,288) B =
+     37, its last strip cut, with the consensus scores) against the int32
+     kernels on every item and their plain versions, timed in turns with
+     them;
   3. the consensus stage on the bench workload (testing.synth
      build_workload, 2048 windows of 500 bp, 12% error, match 5 /
      mismatch -4 / gap -8), four times: the default RLE walk, then
@@ -80,7 +82,7 @@ Phases (each must pass, or the script exits non-zero):
      must launch the sweep and the rows walk (phase 4's 8 kb overlaps,
      W <= 1024 tiers), the wide sweep and the packed walk (phase 5's
      drifting 20 kb overlaps, W = 4096), and under RACON_TPU_DP16=1 the
-     int16 block sweep (the 2 kb reads' (2560,512) tier); no overlap may
+     int16 strip sweep (the 2 kb reads' (2560,512) tier); no overlap may
      go to the host in any run, and every overlap's breaking points must
      equal the Myers run's;
   7. the ablation harness (racon_tpu_torch.benchmarks.profile_ablate) at
@@ -863,12 +865,14 @@ def phase_kernels(results, threads):
 
 def phase_kernels16(results):
     """Phase 2, the int16 DP (RACON_TPU_DP16=1): at (640,128) B = 4096 and
-    (256,128) B = 4097 with the consensus scores and (2560,512) B = 1024
-    with the align route's (0/-1/-1, unit deletion costs), the int16 kernel
-    against the int32 kernel on every item and against the int16 plain
-    version (every item at W = 128, the first `check` at (2560,512)),
-    byte for byte; ms of both kernels, in turns; the bound at two cells
-    an instruction; ptxas's registers and spills per kernel."""
+    (256,128) B = 4097 with the consensus scores, the int16 warp kernel;
+    at (2560,512) B = 1024 with the align route's scores (0/-1/-1, unit
+    deletion costs), (640,288) B = 37 with the consensus scores (the last
+    strip cut at W) and (5120,1024) B = 8 with the align scores, the int16
+    strip kernel: the int16 kernel against the int32 kernel on every item
+    and against the int16 plain version (every item, the first `check` at
+    (2560,512)), byte for byte; ms of both kernels, in turns; the bound at
+    two cells an instruction; ptxas's registers and spills per kernel."""
     import numpy as np
 
     from racon_tpu_torch.ops import nw_kernel as nk
@@ -880,7 +884,9 @@ def phase_kernels16(results):
     rng = np.random.default_rng(1616)
     for cap, W, B, sc, check in ((640, 128, 4096, consensus, None),
                                  (256, 128, 4097, consensus, None),
-                                 (2560, 512, 1024, align, 64)):
+                                 (2560, 512, 1024, align, 64),
+                                 (640, 288, 37, consensus, None),
+                                 (5120, 1024, 8, align, None)):
         geo = dict(m_cap=cap, n_cap=cap, w_band=W)
         q4, t4, dcb, m, n = make_items(rng, B, cap, W, sc["gap"])
         if sc is align:
@@ -931,7 +937,7 @@ def phase_kernels16(results):
         results[name]["shapes"].append(dict(
             shape=[cap, W, B], scores="align" if sc is align else
             "consensus", **numbers))
-        kernel = "nw_sweep16_warp" if W <= 256 else "nw_sweep16_block"
+        kernel = "nw_sweep16_warp" if W <= 256 else "nw_sweep16_strip"
         results[name]["ptxas"] = {k: v for k, v in PTXAS.items()
                                   if k.startswith(kernel)}
         if results[name]["ms"] is None:
@@ -1881,7 +1887,7 @@ def _myers_rle(results, threads):
     from racon_tpu_torch.ops import nw_kernel as nk
     from racon_tpu_torch.ops.align_stage import _chunk_size
     from racon_tpu_torch.ops.batch import to_device
-    from racon_tpu_torch.ops.geometry import rle_events
+    from racon_tpu_torch.ops.geometry import moves_live_tiles, rle_events
 
     runs = []
     reset_launches()
@@ -1937,9 +1943,16 @@ def _myers_rle(results, threads):
         k3 = cuda_ms(lambda: mk.myers_sweep(g.q4, g.t4, **geo), reps=3)
         j5 = cuda_ms(lambda: mk.myers_moves(planes, g.m, **geo), reps=3)
         j1 = cuda_ms(lambda: nk.rle_walk(moves, g.m, g.n, **geo), reps=3)
-        plane_bytes = B * cap * 2 * (W // 32) * 4
-        b5, by5 = bound(2 * plane_bytes + 4 * B,
-                        B * (cap // 16) * W * OPS_MOVES_WORD)
+        # the bound counts the tiles that hold a valid cell (their plane
+        # words read, 40 ops a move word), every move word written and m;
+        # the whole planes' bound is kept beside it
+        tile_bytes = 32 * 4
+        tiles = B * (cap // 16) * (W // 32)
+        live = moves_live_tiles(m, cap, cap, W)
+        b5, by5 = bound((live + tiles) * tile_bytes + 4 * B,
+                        live * 32 * OPS_MOVES_WORD)
+        b5_whole, _ = bound(2 * tiles * tile_bytes + 4 * B,
+                            tiles * 32 * OPS_MOVES_WORD)
         E = rle_events(cap, cap, W)
         steps = _walk_steps_taken(rle.cpu())
         b1, by1 = _walk_bound(B, cap, W, E + 1, steps)
@@ -1949,13 +1962,17 @@ def _myers_rle(results, threads):
             f"rows route's on all {int((~esc).sum())} items that neither "
             f"escapes ({int(esc.sum())} escape); payload {E + 1} bytes an "
             f"item (rows {cap + 2}); K3 {k3:.3f} ms, J5 {j5:.3f} ms "
-            f"({100 * b5 / j5:.1f} % of its bound {b5:.3f} ms by {by5}), "
+            f"({100 * b5 / j5:.1f} % of its bound {b5:.3f} ms by {by5} "
+            f"over the {100 * live / tiles:.1f} % of tiles with a valid "
+            f"cell; the whole planes' bound {b5_whole:.3f} ms), "
             f"J1 {j1:.3f} ms (bound {b1:.5f} ms by {by1}, {steps} steps); "
             f"peak device memory of the fused call {peak / 2**30:.3f} GiB")
         del planes, moves
         record_shape(results, "myers_moves", cap, W, B, "align",
                      max_abs_err=err, ms=j5, plain_ms=moves_plain,
                      bound_ms=b5, bound_by=by5, plain_items=idx.tolist(),
+                     live_tile_share=live / tiles,
+                     whole_planes_bound_ms=b5_whole,
                      k3_ms=k3, j1_ms=j1, peak_bytes=peak,
                      payload_bytes_item={"rle": E + 1, "rows": cap + 2})
         record_shape(results, "rle_walk", cap, W, B, "align",

@@ -3,23 +3,23 @@ kernels/csrc/rle_walk.cu), the scored sweep's strip kernel (K2 and K5,
 kernels/csrc/nw_sweep.cu at W > 256), the packed2 walk (J4,
 kernels/csrc/packed_walk.cu), the rows walk (K6,
 kernels/csrc/rows_walk.cu), the panel sweep and its ablation variants
-(K7, K8, kernels/csrc/nw_sweep_t.cu) and the int16 warp sweep (K1-16,
-kernels/csrc/nw_sweep16.cu) of this checkout against those of another
+(K7, K8, kernels/csrc/nw_sweep_t.cu), the int16 sweeps (K1-16 and K2-16,
+kernels/csrc/nw_sweep16.cu) and the Myers plane-to-move transform (J5,
+kernels/csrc/myers_moves.cu) of this checkout against those of another
 version of the sources, on one card, timed in turns:
 
     python -m racon_tpu_torch.benchmarks.kernel_ab OTHER_CSRC [--json PATH]
-        [--only myers_sweep rle_walk strip walks sweep_t sweep16]
+        [--only myers_sweep rle_walk strip walks sweep_t sweep16 moves]
 
 OTHER_CSRC is a directory holding the other version's myers_sweep.cu,
 rle_walk.cu, nw_sweep.cu, packed_walk.cu, rows_walk.cu, nw_sweep_t.cu,
-nw_sweep16.cu, sweep_scan.cuh and common.cuh (for example unpacked with
-`git archive <commit>
+nw_sweep16.cu, myers_moves.cu, sweep_scan.cuh and common.cuh (for
+example unpacked with `git archive <commit>
 racon_tpu_torch/kernels/csrc | tar -x`); a file it lacks is taken from
 this checkout, so that a directory of one variant source (such as
 benchmarks/variants/rows_walk_producer/) builds against the rest of this
-version. Both versions are built alike,
-by nvcc into a shared library of their plain C launchers bound with
-ctypes, and fed the same inputs (seed 7: every 7th item all PAD, every
+version. Both versions are built alike, by nvcc into a shared library
+of their plain C launchers bound with ctypes, and fed the same inputs (seed 7: every 7th item all PAD, every
 11th cut short so that it leaves the band). Per shape: both outputs byte
 for byte on every item, then CUDA-event ms (mean of 5 launches after a
 warm-up) in the order other, this, this, other; each version's mean, us
@@ -50,8 +50,16 @@ empty) at the ablation harness's (640,128) B = 8192 on its items
 items packed, byte-equal to K7 and timed beside it. The int16 warp sweep
 at (640,128) B = 4096 and (256,128) B = 4097 with the consensus scores
 (30 % free deletion columns), both builds against this build's int32 K1
-on every item, K1 timed beside them; its bound counts two cells a 16x2
-instruction.
+on every item, K1 timed beside them, and the int16 strip sweep at
+(2560,512) B = 1024 with the align scores (every deletion bit set; the
+scored align route's 2 kb tier), both builds against this build's int32
+strip kernel on every item, timed beside them; their bound counts two
+cells a 16x2 instruction. J5 at (10240,1024) B = 1024 and (40960,1024)
+B = 409 (the Myers "rle" payload's chunks) on planes this build's K3
+makes of seed 17's items; its bound counts the plane words of the
+tiles that hold a valid cell (geometry.moves_live_tiles) read and every
+move word written, or 40 ops a move word of those tiles (the whole
+planes' bound beside it).
 
 Needs nvcc and a CUDA device (exit 2 without one). Prints the card's
 name and power limit first and one JSON line last.
@@ -72,13 +80,14 @@ import numpy as np
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "..", "kernels", "csrc")
 SOURCES = ("myers_sweep.cu", "rle_walk.cu", "nw_sweep.cu", "packed_walk.cu",
-           "rows_walk.cu", "nw_sweep_t.cu", "nw_sweep16.cu")
+           "rows_walk.cu", "nw_sweep_t.cu", "nw_sweep16.cu", "myers_moves.cu")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 OPS_MYERS_WORD = 20
 OPS_WALK_STEP = 12
 OPS_SWEEP_CELL = 15
+OPS_MOVES_WORD = 40
 CELLS_PER_OP16 = 2   # the int16 sweep: two cells per 16x2 instruction
 SMS, SM_INT32_OPS_PER_S = 132, 64 * 1.98e9
 
@@ -106,7 +115,8 @@ def load(out: str) -> ctypes.CDLL:
             "rtt_packed_walk": [P] * 4 + [I] * 5 + [P],
             "rtt_rows_walk": [P] * 4 + [I] * 4 + [P],
             "rtt_nw_sweep_t": [P] * 5 + [I] * 9 + [P],
-            "rtt_nw_sweep16": [P] * 5 + [I] * 9 + [P]}
+            "rtt_nw_sweep16": [P] * 5 + [I] * 9 + [P],
+            "rtt_myers_moves": [P] * 3 + [I] * 4 + [P]}
     for name, argtypes in sigs.items():
         fn = getattr(lib, name, None)
         if fn is not None:
@@ -478,19 +488,24 @@ def sweep_t(libs, rng, stream):
 def sweep16(libs, rng, stream):
     """The int16 warp sweep (K1-16) of both builds at the consensus
     stage's (640,128) and (256,128) chunks, each against this build's
-    int32 K1 on every item."""
+    int32 K1 on every item, and the int16 strip sweep (K2-16) at the
+    scored align route's (2560,512) chunk against this build's int32
+    strip kernel."""
     import torch
 
     from racon_tpu_torch.ops.batch import to_device
     from racon_tpu_torch.ops.geometry import scan_span
 
     rng = np.random.default_rng(16)
-    sc = (5, -4, -8)
     rows = []
-    for cap, W, B in ((640, 128, 4096), (256, 128, 4097)):
+    for cap, W, B, sc in ((640, 128, 4096, (5, -4, -8)),
+                          (256, 128, 4097, (5, -4, -8)),
+                          (2560, 512, 1024, (0, -1, -1))):
         q4, t4, m, n = items(rng, B, cap, W)
         dcb = np.packbits(rng.random((B, cap)) >= 0.3, axis=1,
                           bitorder="little")
+        if sc == (0, -1, -1):
+            dcb[:] = 0xFF
         g = to_device(q4, t4, dcb, m, n, m_cap=cap, n_cap=cap,
                       device="cuda")
         neg = -((cap + cap) * max(map(abs, sc)) + 64)
@@ -516,17 +531,66 @@ def sweep16(libs, rng, stream):
         torch.cuda.synchronize()
         want = buf.clone()
         nbytes = B * (cap // 2 + cap // 2 + cap // 8) + 4 * (nmv + B)
-        row = in_turns("nw_sweep16", (cap, W), B, libs, run, lambda: buf,
+        name = "nw_sweep16" if W <= 256 else "nw_sweep_block16"
+        row = in_turns(name, (cap, W), B, libs, run, lambda: buf,
                        bound_ms(nbytes, B * cap * W * OPS_SWEEP_CELL
                                 / CELLS_PER_OP16))
         if not torch.equal(buf, want):
-            raise SystemExit(f"nw_sweep16 ({cap},{W}) B={B}: differs from "
-                             "the int32 sweep")
+            raise SystemExit(f"{name} ({cap},{W}) B={B}: differs from the "
+                             "int32 sweep")
         row["int32_ms"] = cuda_ms(k1)
-        print(f"  byte-equal to the int32 K1 on every item; K1 "
-              f"{row['int32_ms']:.4f} ms", flush=True)
+        print(f"  byte-equal to the int32 sweep on every item; the int32 "
+              f"sweep {row['int32_ms']:.4f} ms", flush=True)
         rows.append(row)
         del buf, g
+        torch.cuda.empty_cache()
+    return rows
+
+
+def moves(libs, rng, stream):
+    """The Myers plane-to-move transform (J5) of both builds at the
+    "rle" payload's chunks, on planes this build's K3 makes."""
+    import torch
+
+    from racon_tpu_torch.ops.batch import to_device
+    from racon_tpu_torch.ops.geometry import moves_live_tiles
+
+    rng = np.random.default_rng(17)
+    rows = []
+    for cap, W, B in ((10240, 1024, 1024), (40960, 1024, 409)):
+        q4, t4, m, n = items(rng, B, cap, W)
+        g = to_device(q4, t4, None, m, n, m_cap=cap, n_cap=cap,
+                      device="cuda")
+        planes = torch.empty((B, cap, 2, W // 32), dtype=torch.int32,
+                             device="cuda")
+        rc = libs["this"].rtt_myers_sweep(ptr(g.q4), ptr(g.t4), ptr(planes),
+                                          B, cap, cap, W, stream())
+        if rc:
+            raise SystemExit(f"rtt_myers_sweep: error {rc}")
+        out = torch.empty((B, cap // 16, W), dtype=torch.int32,
+                          device="cuda")
+
+        def run(lib):
+            rc = lib.rtt_myers_moves(ptr(planes), ptr(g.m), ptr(out), B, cap,
+                                     cap, W, stream())
+            if rc:
+                raise SystemExit(f"rtt_myers_moves: error {rc}")
+
+        # the tiles (16 rows x 32 lanes) that hold a valid cell: their
+        # plane words read and 40 ops a move word; every move word written
+        tiles = out.numel() // 32
+        live = moves_live_tiles(m, cap, cap, W)
+        row = in_turns("myers_moves", (cap, W), B, libs, run, lambda: out,
+                       bound_ms((live + tiles) * 128 + 4 * B,
+                                live * 32 * OPS_MOVES_WORD))
+        row["live_tile_share"] = live / tiles
+        row["whole_planes_bound"] = bound_ms(2 * tiles * 128 + 4 * B,
+                                             tiles * 32 * OPS_MOVES_WORD)
+        print(f"  tiles with a valid cell: {100 * live / tiles:.1f} %; the "
+              f"whole planes' bound {row['whole_planes_bound'][0]:.4f} ms",
+              flush=True)
+        rows.append(row)
+        del planes, out, g
         torch.cuda.empty_cache()
     return rows
 
@@ -535,7 +599,7 @@ def sweep16(libs, rng, stream):
 # draw their items from one generator (seed 7), the others from their own
 SECTIONS = {"myers_sweep": myers_sweeps, "rle_walk": rle_walks,
             "strip": strip_sweeps, "walks": walks, "sweep_t": sweep_t,
-            "sweep16": sweep16}
+            "sweep16": sweep16, "moves": moves}
 # the sources each section builds (both versions)
 SECTION_SOURCES = {"myers_sweep": ("myers_sweep.cu",),
                    "rle_walk": ("rle_walk.cu", "nw_sweep.cu"),
@@ -543,7 +607,8 @@ SECTION_SOURCES = {"myers_sweep": ("myers_sweep.cu",),
                    "walks": ("nw_sweep.cu", "packed_walk.cu",
                              "rows_walk.cu"),
                    "sweep_t": ("nw_sweep_t.cu", "nw_sweep.cu"),
-                   "sweep16": ("nw_sweep16.cu", "nw_sweep.cu")}
+                   "sweep16": ("nw_sweep16.cu", "nw_sweep.cu"),
+                   "moves": ("myers_moves.cu", "myers_sweep.cu")}
 
 
 def main() -> int:

@@ -36,7 +36,8 @@ import tempfile
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 PROBE = os.path.join(_HERE, "simd16_rate.cu")
-SWEEP16 = os.path.join(_HERE, "..", "kernels", "csrc", "nw_sweep16.cu")
+CSRC = os.path.join(_HERE, "..", "kernels", "csrc")
+SWEEP16 = os.path.join(CSRC, "nw_sweep16.cu")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 OPS = ("iadd (32-bit)", "max (32-bit)", "__vadd2", "__vsub2", "__vmaxs2",
        "__vminu2", "__vcmpeq2 (+xor)", "__viaddmax_s16x2",
@@ -56,7 +57,7 @@ def sass_opcodes(src: str, tmp: str,
     the listing also written to `listing` when given."""
     cubin = os.path.join(tmp, os.path.basename(src) + ".cubin")
     subprocess.run([_tool("nvcc"), ARCH, "-std=c++17", "-O3", "-cubin",
-                    "-o", cubin, src], check=True)
+                    "-I", CSRC, "-o", cubin, src], check=True)
     sass = subprocess.run([_tool("cuobjdump"), "-sass", cubin], check=True,
                           capture_output=True, text=True).stdout
     if listing:

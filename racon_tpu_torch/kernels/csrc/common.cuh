@@ -72,6 +72,43 @@ __device__ __forceinline__ uint32_t transpose32(uint32_t x, int lane) {
   return x;
 }
 
+constexpr int kSweepRing = 2;  // rows in each warp's hand-off rings of the
+                                // strip sweeps; geometry.SWEEP_RING
+static_assert((kSweepRing & (kSweepRing - 1)) == 0, "a power of two");
+
+// One hand-off slot of the strip sweeps (nw_sweep.cu, nw_sweep16.cu): the
+// row in the high word, the value in the low, one 64-bit access, so that a
+// reader never sees a row with another row's value and needs no fence.
+__device__ __forceinline__ void publish(unsigned long long* slot, int row,
+                                        int v) {
+  *reinterpret_cast<volatile unsigned long long*>(slot) =
+      (static_cast<unsigned long long>(row) << 32) | static_cast<uint32_t>(v);
+}
+
+// The value of `slot` once its row is `row` or later, read by the whole
+// warp; a warp that finds it not yet written sleeps (a back-off up to
+// 256 ns), so that it takes no issue slots from the working warps. A build
+// with -DRTT_WAIT_POLLS=n traps after n polls, so that a hand-off fault
+// ends the launch instead of hanging the card.
+__device__ __forceinline__ int await_row(const unsigned long long* slot,
+                                         int row) {
+  const volatile unsigned long long* p = slot;
+  unsigned long long v = *p;
+  unsigned ns = 8;
+#ifdef RTT_WAIT_POLLS
+  long long polls = 0;
+#endif
+  while (!__all_sync(kFull, static_cast<int>(v >> 32) >= row)) {
+#ifdef RTT_WAIT_POLLS
+    if (++polls > RTT_WAIT_POLLS) __trap();
+#endif
+    __nanosleep(ns);
+    ns = min(2 * ns, 256u);
+    v = *p;
+  }
+  return static_cast<int>(static_cast<uint32_t>(v));
+}
+
 }  // namespace rtt
 
 // Launchers return the launch status without clearing it, so the PyTorch

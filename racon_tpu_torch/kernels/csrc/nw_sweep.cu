@@ -58,8 +58,10 @@
 // move of its last lane. Each warp publishes its pair into rings of
 // kSweepRing rows in shared memory, a slot being the row and the value in
 // one 64-bit word; a waiting warp polls the slot behind a __nanosleep
-// back-off. The hand-off is skewed so that the carry never waits for the
-// right neighbour: a thread's last lane leaves its up candidate out of the
+// back-off (common.cuh's publish and await_row, shared with nw_sweep16.cu;
+// a build with -DRTT_WAIT_POLLS=n traps a wait after n polls). The
+// hand-off is skewed so that the carry never waits for the right
+// neighbour: a thread's last lane leaves its up candidate out of the
 // scan (the lane to its right reaches every value it could give, see the
 // kernel) and takes it when the next row starts, so warp w reads warp
 // w + 1's H of row i - 2 at row i and runs at most two rows ahead of it.
@@ -260,35 +262,6 @@ nw_sweep_warp_kernel(const uint8_t* __restrict__ q4,
 #pragma unroll
   for (int u = 0; u < LPT; ++u)
     if (k0 + u == n_cap - m_cap - dlo) score[b] = hp[u];
-}
-
-constexpr int kSweepRing = 2;  // rows in each warp's hand-off rings;
-                                // geometry.SWEEP_RING
-static_assert((kSweepRing & (kSweepRing - 1)) == 0, "a power of two");
-
-// One hand-off slot: the row in the high word, the value in the low, one
-// 64-bit access, so that a reader never sees a row with another row's
-// value and needs no fence.
-__device__ __forceinline__ void publish(unsigned long long* slot, int row,
-                                        int v) {
-  *reinterpret_cast<volatile unsigned long long*>(slot) =
-      (static_cast<unsigned long long>(row) << 32) | static_cast<uint32_t>(v);
-}
-
-// The value of `slot` once its row is `row` or later, read by the whole
-// warp; a warp that finds it not yet written sleeps (a back-off up to
-// 256 ns), so that it takes no issue slots from the working warps.
-__device__ __forceinline__ int await_row(const unsigned long long* slot,
-                                         int row) {
-  const volatile unsigned long long* p = slot;
-  unsigned long long v = *p;
-  unsigned ns = 8;
-  while (!__all_sync(kFull, static_cast<int>(v >> 32) >= row)) {
-    __nanosleep(ns);
-    ns = min(2 * ns, 256u);
-    v = *p;
-  }
-  return static_cast<int>(static_cast<uint32_t>(v));
 }
 
 // In place, a[u] becomes the max of a over the warp's lanes at or below

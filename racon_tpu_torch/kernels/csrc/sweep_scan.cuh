@@ -1,7 +1,7 @@
 // The scored sweeps' inclusive max-plus prefix scans over the band lanes:
-// the block scan of nw_sweep.cu's block kernel (K2/K5) and nw_sweep_t.cu
-// (K7/K8), so that the ablation of K7 times the block design of K1, and
-// the warp-only scan of nw_sweep.cu's warp kernel (K1, W <= 256).
+// the block scan of nw_sweep_t.cu's block kernel (K7/K8 above W = 256),
+// and the warp-only scan of nw_sweep.cu's warp kernel (K1, W <= 256) and
+// nw_sweep_t.cu's warp kernel.
 #pragma once
 
 #include <climits>

@@ -118,10 +118,10 @@ def peq_words(n_cap: int, w_band: int) -> int:
 
 
 # Launch geometry of the kernels built around one warp per item (and of
-# the RLE walk, a warp of items); the constants mirror kSweepWarps,
-# kSweepRing (kernels/csrc/nw_sweep.cu), kSweep16Warps
-# (kernels/csrc/nw_sweep16.cu), kWalkWarps, kWalkRows
-# (kernels/csrc/myers_walk.cu), kWalkItems, kMaxStage
+# the RLE walk, a warp of items); the constants mirror kSweepRing
+# (kernels/csrc/common.cuh), kSweepWarps (kernels/csrc/nw_sweep.cu),
+# kSweep16Warps, kStrip16Warps (kernels/csrc/nw_sweep16.cu), kWalkWarps,
+# kWalkRows (kernels/csrc/myers_walk.cu), kWalkItems, kMaxStage
 # (kernels/csrc/rle_walk.cu), kPackedWarps, kPackedSlots, kWindowLanes,
 # kStageBytes (kernels/csrc/packed_walk.cu) and kRowsWarps, kRowsSlots
 # (kernels/csrc/rows_walk.cu).
@@ -129,6 +129,7 @@ SWEEP_WARP_MAX_W = 256    # widest band the warp-per-item sweep takes
 SWEEP_WARPS = 4           # items (warps) per block of the warp sweep
 SWEEP_RING = 2            # rows in each strip's hand-off rings
 SWEEP_SMS = 132           # SMs of the H100 the strip kernel's rule counts
+SWEEP16_SM_WARPS = 4      # warps an SM the int16 strip kernel's rule asks for
 MYERS_WALK_WARPS = 2      # items (warps) per block of the Myers walk
 MYERS_WALK_ROWS = 16      # query rows per cp.async group of the walk
 RLE_WALK_ITEMS = 32       # items (threads) per block of the RLE walk
@@ -166,8 +167,9 @@ def sweep_kernel(w_band: int, dp16: bool = False) -> str:
     kernel, one block of warp strips per item, at K2's tiers and the align
     stage's scored route up to W = 1024) or "nw_sweep_wide" (the strip
     kernel at W = 2048 and 4096: K5). With dp16 (H in int16, sweep_dp16)
-    up to W = 1024, their int16 forms "nw_sweep16" and "nw_sweep_block16";
-    K5 has none."""
+    up to W = 1024, their int16 forms "nw_sweep16" (the int16 warp
+    kernel) and "nw_sweep_block16" (the int16 strip kernel); K5 has
+    none."""
     if w_band > 1024:
         return "nw_sweep_wide"
     name = "nw_sweep" if w_band <= SWEEP_WARP_MAX_W else "nw_sweep_block"
@@ -191,13 +193,35 @@ def sweep16_tpi(w_band: int) -> int:
     return 8 if w_band == 128 else 32
 
 
-def sweep16_threads(w_band: int) -> int:
+def sweep16_pairs(w_band: int, B: int) -> int:
+    """s16x2 pairs (two band lanes each) per thread of the int16 strip
+    kernel at band width W > 256 and B items (strip16_pairs in
+    kernels/csrc/nw_sweep16.cu): the most, 8 then 4, that still put
+    SWEEP16_SM_WARPS warps or more (one a scheduler) on each of the H100's
+    SWEEP_SMS SMs (an SM's items one block each), else 2; timed on the
+    card at 2, 4 and 8 (benchmarks/strip_ab.py, PERF.md). A warp's strip
+    is 64 times as many lanes."""
+    items_per_sm = -(-B // SWEEP_SMS)
+    for pairs in (8, 4):
+        if items_per_sm * -(-w_band // (64 * pairs)) >= SWEEP16_SM_WARPS:
+            return pairs
+    return 2
+
+
+def sweep16_warps(w_band: int, B: int) -> int:
+    """Warps (strips) per item of the int16 strip kernel: strips of
+    64 * sweep16_pairs lanes, the last one cut at W."""
+    return -(-w_band // (64 * sweep16_pairs(w_band, B)))
+
+
+def sweep16_threads(w_band: int, B: int = 1) -> int:
     """Threads per item of the int16 sweep: sweep16_tpi for the warp
-    kernel, one per pair of band lanes rounded up to whole warps for the
-    block kernel (W = 512: 256)."""
+    kernel; 32 a strip for the strip kernel, whose strips depend on the
+    launch's B items (W = 512: 32 at B > 396, 64 at B = 133 .. 396, 128
+    at B <= 132)."""
     if w_band <= SWEEP_WARP_MAX_W:
         return sweep16_tpi(w_band)
-    return -(-w_band // 64) * 32
+    return 32 * sweep16_warps(w_band, B)
 
 
 def sweep_launch(B: int, m_cap: int, n_cap: int, w_band: int,
@@ -211,8 +235,9 @@ def sweep_launch(B: int, m_cap: int, n_cap: int, w_band: int,
     the target columns as 32-bit values (code | deletion cost << 8). The
     int16 warp kernel holds 32 * SWEEP_WARPS / sweep16_tpi items a block,
     each its query code bytes and its target columns as 16-bit halves
-    (m_cap + 2 n_cap); the int16 block kernel one item, with its pair
-    exchange, warp totals and codes."""
+    (m_cap + 2 n_cap); the int16 strip kernel one item, sweep16_warps
+    warps, their rings as the int32 strip kernel's, and the codes as the
+    int16 warp kernel's."""
     kernel = sweep_kernel(w_band, dp16)
     if kernel == "nw_sweep":
         return (-(-B // SWEEP_WARPS), 32 * SWEEP_WARPS,
@@ -222,8 +247,8 @@ def sweep_launch(B: int, m_cap: int, n_cap: int, w_band: int,
         return (-(-B // per_block), 32 * SWEEP_WARPS,
                 per_block * (m_cap + 2 * n_cap))
     if kernel == "nw_sweep_block16":
-        threads = sweep16_threads(w_band)
-        return B, threads, (2 * threads + 32) * 4 + m_cap + 2 * n_cap
+        warps = sweep16_warps(w_band, B)
+        return B, 32 * warps, 16 * SWEEP_RING * warps + m_cap + 2 * n_cap
     warps = sweep_warps(w_band, B)
     return B, 32 * warps, 16 * SWEEP_RING * warps + m_cap + 4 * n_cap
 
@@ -273,6 +298,27 @@ def myers_sweep_launch(B: int, n_cap: int,
     sweep launch: one warp and one item a block, with the item's six Peq
     planes (myers_fits keeps them within 48 KB)."""
     return B, 32, NW_CODES * peq_words(n_cap, w_band) * 4
+
+
+def moves_live_tiles(m: np.ndarray, m_cap: int, n_cap: int,
+                     w_band: int) -> int:
+    """Tiles (item, 16-row group, 32-lane word) of the Myers plane-to-move
+    transform (J5, kernels/csrc/myers_moves.cu) that hold a valid cell: a
+    row up to the item's m and a column inside 1 .. n_cap. Only these need
+    their 32 plane words read and their codes worked out; the others are
+    all ones whatever the planes hold. J5's bound counts these."""
+    G, nw = m_cap // PACK, w_band // 32
+    g = np.arange(G)
+    # valid rows of each tile (0 .. 16); row r of a tile at lane t sits in
+    # column J + r + t, J = 16 g + 1 + dlo + 32 w
+    rows = np.clip(np.asarray(m, np.int64)[:, None] - PACK * g, 0, PACK)
+    J = (PACK * g + 1 + band_dlo(m_cap, n_cap, w_band))[:, None] \
+        + 32 * np.arange(nw)                                     # (G, nw)
+    r = np.arange(PACK + 1)
+    live = (r[None, :, None] > 0) & (J[:, None, :] <= n_cap) \
+        & (J[:, None, :] + r[None, :, None] + 30 >= 1)          # (G, 17, nw)
+    per = live.sum(axis=2)                                       # (G, 17)
+    return int(per[g[None, :], rows].sum())
 
 
 def _rle_stage_bytes(items: int, max_events: int) -> int:

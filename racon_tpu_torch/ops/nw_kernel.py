@@ -79,7 +79,7 @@ def nw_sweep(q4, t4, dcb, *, m_cap, n_cap, w_band, match, mismatch, gap):
     strips per item; see geometry.sweep_kernel and sweep_launch. Where geometry.sweep_dp16 holds
     (RACON_TPU_DP16=1 and the int16 gate), H runs in int16, as the
     reference's t8 and t8big do there: kernels/csrc/nw_sweep16.cu's warp
-    or block kernel ("nw_sweep16", "nw_sweep_block16"), equal bit for bit
+    or strip kernel ("nw_sweep16", "nw_sweep_block16"), equal bit for bit
     to the int32 sweep."""
     if not sweep_fits(m_cap, n_cap, w_band):
         raise ValueError(f"sweep shape ({m_cap}, {n_cap}, {w_band}) "

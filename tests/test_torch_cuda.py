@@ -108,12 +108,15 @@ def test_strip_sweep_matches_plain(gpu, cap, w, B, scores):
     (640, 128, 4096, (5, -4, -8)), (256, 128, 13, (5, -4, -8)),
     (256, 96, 130, (5, -4, -8)), (320, 160, 130, (5, -4, -8)),
     (512, 256, 1025, (3, -5, -4)), (2560, 512, 48, (0, -1, -1)),
-    (768, 288, 48, (5, -4, -8))])
+    (768, 288, 48, (5, -4, -8)), (512, 1024, 40, (0, -1, -1)),
+    (256, 512, 1024, (0, -1, -1))])
 def test_sweep16_matches_plain_and_int32(gpu, monkeypatch, cap, w, B, scores):
     """RACON_TPU_DP16=1: the int16 warp kernel (W <= 256; at W = 128 four
-    items a warp, whose last warp runs part empty at B = 4097 and 13) and block
-    kernel (W = 288, 512) against the int16 plain version and the int32
-    kernel, byte for byte, with _packed's all-PAD and out-of-band items;
+    items a warp, whose last warp runs part empty at B = 4097 and 13) and
+    strip kernel (W = 288 with its last strip cut, 512 and 1024; at B =
+    1024 the launch rule's other side) against the int16 plain version and
+    the int32 kernel, byte for byte, with _packed's all-PAD and out-of-band
+    items;
     nw_sweep launches the int16 kernel and not the int32 one, and
     launch_sweep16 counts each launch."""
     q4, t4, dcb, m, n = _packed(cap + w, B, cap, w)

@@ -3,9 +3,10 @@ the PyTorch port (plain versions, on the CPU) against the JAX package:
 
 - myers_moves_plain equals racon_tpu's myers_moves_from_planes on the
   planes of myers_sweep_ref (relaid to the port's (B, m_cap, 2, nw)), at
-  every cell, at (256,128) and (1024,256); a numpy model of
-  kernels/csrc/myers_moves.cu (each warp's 32 plane words, the five-step
-  shuffle transpose, the codes and the row/column mask) equals it;
+  every cell, at (256,128) and (1024,256); the numpy model of
+  kernels/csrc/myers_moves.cu (test_torch_sweep16_strip.j5_model: a lane
+  a tile, the in-register transpose, the codes and masks, the staged
+  stores) equals it;
 - align_walk_myers_padded(fmt="rle", device="cpu") gives racon_tpu's
   align_walk_myers_rle_batch(interpret=True) payload byte for byte, and
   its decoded op lists equal the rows route's for every item that
@@ -22,13 +23,12 @@ from racon_tpu.ops.myers_kernel import (align_walk_myers_rle_batch,
                                         myers_sweep_ref, sweep_rows_g)
 from racon_tpu.ops.nw_kernel import B_LANE
 from racon_tpu_torch.ops import myers_kernel as mk
-from racon_tpu_torch.ops.geometry import PAD_CODE, band_dlo, encode
+from racon_tpu_torch.ops.geometry import PAD_CODE, encode
 from racon_tpu_torch.ops.nw_kernel import payload_decoder
 from racon_tpu_torch.parallel import mesh
 
 torch.set_num_threads(2)
 ACGT = np.frombuffer(b"ACGT", np.uint8)
-_M32 = 0xFFFFFFFF
 
 
 def _items(seed, B, cap, w):
@@ -71,42 +71,6 @@ def _ref_planes(q8, t8, cap, w):
                                       n_cap=cap, w_band=w))
 
 
-def _kernel_model(planes, m, *, m_cap, n_cap, w_band):
-    """numpy model of myers_moves.cu: a warp per (item, 16-row group,
-    word); lane j loads row 16g + (j >> 1), plane j & 1; the shuffle
-    transpose (lane j takes lane j ^ s's word at steps s = 16 .. 1);
-    then lane t's codes and mask for band lane 32w + t."""
-    B, _, _, nw = planes.shape
-    G = m_cap // 16
-    W = w_band
-    words = (planes.astype(np.int64) & _M32).reshape(B, G, 16, 2, nw)
-    x = words.transpose(0, 1, 4, 2, 3).reshape(B, G, nw, 32)  # lane j
-    lane = np.arange(32)
-    for s, mk_ in ((16, 0x0000FFFF), (8, 0x00FF00FF), (4, 0x0F0F0F0F),
-                   (2, 0x33333333), (1, 0x55555555)):
-        y = x[..., lane ^ s]
-        hi = (lane & s) != 0
-        x = np.where(hi, (x & ~mk_ & _M32) | ((y >> s) & mk_),
-                     (x & mk_) | (((y & mk_) << s) & _M32))
-    nd = ~x & 0x55555555
-    up = (x >> 1) & 0x55555555
-    code = (nd & up) | ((nd & ~up & _M32) << 1)
-    k = 32 * np.arange(nw)[:, None] + lane                # (nw, 32)
-    g = np.arange(G)[:, None, None]
-    j0 = 16 * g + 1 + band_dlo(m_cap, n_cap, W) + k       # (G, nw, 32)
-    rlo = np.maximum(0, 1 - j0)
-    rhi = np.minimum(np.minimum(15, n_cap - j0),
-                     np.asarray(m, np.int64)[:, None, None, None]
-                     - (16 * g + 1))
-
-    def below(r):
-        return np.where(r >= 16, _M32, (1 << (2 * np.clip(r, 0, 15))) - 1)
-
-    valid = np.where(rlo > rhi, 0, below(rhi + 1) & ~below(rlo) & _M32)
-    out = (code | (~valid & _M32)).reshape(B, G, W)
-    return np.where(out >= 2 ** 31, out - 2 ** 32, out).astype(np.int32)
-
-
 @pytest.mark.parametrize("cap,w,B", [(256, 128, 12), (1024, 256, 7)])
 def test_myers_moves_plain_matches_jax(cap, w, B):
     q8, t8, m, n = _items(cap + w, B, cap, w)
@@ -125,7 +89,9 @@ def test_myers_moves_plain_matches_jax(cap, w, B):
     assert torch.equal(mk.myers_moves_plain(
         torch.from_numpy(port_planes), torch.from_numpy(m), **geo, rows=32),
         got)
-    assert np.array_equal(_kernel_model(port_planes, m, **geo), got.numpy())
+    from test_torch_sweep16_strip import j5_model
+
+    assert np.array_equal(j5_model(port_planes, m, **geo)[0], got.numpy())
 
 
 def _ops(fmt, payload, cap, w, m, n):
