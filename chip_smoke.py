@@ -132,7 +132,9 @@ Phases (each must pass, or the script exits non-zero):
      gather kernel against its plain version and the host packers at
      (640,128) B = 4096, (256,128) B = 4097 and (5120,1024) B = 8 (odd
      starts, clear deletion-cost bits, all-PAD items), with CUDA-event
-     times and the share of its bound; the bench workload under the
+     times, its time in a CUDA graph beside the empty kernel of its grid
+     (the floor of a launch) and the share of its bound, also of the time
+     above the floor; the bench workload under the
      gather route (91, phase 3's consensus, 3 cohorts, no host row packer
      called); phase 4's polish under it (the FASTA byte-equal, no host row
      packer called in polish(), the stage split beside phase 4's, the blob
@@ -367,25 +369,6 @@ def cuda_ms(fn, reps=5):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
-
-
-def graph_ms(launch, reps=20, replays=5):
-    """CUDA-event ms a launch of `launch` (a raw kernel call on
-    preallocated outputs), captured reps times in a CUDA graph and the
-    graph replayed: the kernel's own time, where cuda_ms's loop around a
-    kernel of a few microseconds times the host's calls instead."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        launch()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            launch()
-    return cuda_ms(graph.replay, reps=replays) / reps
 
 
 def host_ms(fn):
@@ -1609,7 +1592,7 @@ def phase_gather(wd, threads, results, state):
     bench workload, phase 4's polish and the bench on the mesh (cuda:0,
     cuda:0) under the gather route, each equal to its dense run with no
     host row packer called; then J5 and J1 at the Myers tiers."""
-    _gather_kernel(results)
+    _gather_kernel(results, state)
     _gather_bench(threads, results, state)
     _gather_polish(wd, threads, results, state)
     _gather_mesh(threads, results)
@@ -1641,49 +1624,30 @@ def _count_packers(calls):
             setattr(bindings, k, fn)
 
 
-def _gather_items(rng, B, cap):
-    """The gather route's inputs for B items at cap: code blobs of layer
-    and backbone codes (0..4) and a deletion-cost bit blob 30 % clear, as
-    the stage makes them, and meta rows with odd starts, rows of length
-    cap and one ending at each blob's end, every 7th item all PAD.
-    Returns (word blobs, meta, the numpy blobs the host packers read)."""
-    import numpy as np
-
-    from racon_tpu_torch.ops import gather
-
-    L = B * cap // 2 + cap + 7
-    q8 = rng.integers(0, 5, L).astype(np.int8)
-    t8 = rng.integers(0, 5, L).astype(np.int8)
-    dmask = rng.random(L) >= 0.3
-    lens = rng.integers(cap // 2, cap + 1, (2, B))
-    lens[:, 0] = cap
-    lens[:, 6::7] = 0
-    starts = rng.integers(0, L - cap, (2, B))
-    starts[:, 1] = L - lens[:, 1]
-    starts[:, 2::2] |= 1
-    meta = np.stack([starts[0], lens[0], starts[1], lens[1]],
-                    1).astype(np.int32)
-    words = (gather.code_words(q8), gather.code_words(t8),
-             gather.bit_words(dmask))
-    return words, meta, (q8, t8, dmask.view(np.int8))
-
-
-def _gather_kernel(results):
+def _gather_kernel(results, state):
     """Phase 10 (a): pack_gather at (640,128) B = 4096, (256,128) B = 4097
     and (5120,1024) B = 8 against its plain version and the host packers,
     byte for byte; CUDA-event ms, the host packers' ms, and the share of
-    the bytes bound."""
+    the bytes bound; beside the kernel in a CUDA graph, the empty kernel
+    of the same grid (the floor of a launch, built at the start) and the
+    share of the bound over the time above it."""
+    import ctypes
+
     import numpy as np
     import torch
 
+    from racon_tpu_torch.benchmarks.kernel_ab import (GATHER_SHAPES,
+                                                      gather_bytes,
+                                                      gather_items, graph_ms)
     from racon_tpu_torch.kernels.build import kernels
     from racon_tpu_torch.native import bindings
     from racon_tpu_torch.ops import gather
     from racon_tpu_torch.ops.geometry import PAD_CODE
 
+    empty = state["gather_empty"]
     rng = np.random.default_rng(1476)
-    for cap, W, B in ((640, 128, 4096), (256, 128, 4097), (5120, 1024, 8)):
-        words, meta, (q8, t8, del8) = _gather_items(rng, B, cap)
+    for cap, W, B in GATHER_SHAPES:
+        words, meta, (q8, t8, del8) = gather_items(rng, B, cap)
         dev = [torch.from_numpy(x).cuda() for x in (*words, meta)]
         geo = dict(m_cap=cap, n_cap=cap)
         got = gather.pack_gather(*dev, **geo)
@@ -1705,21 +1669,29 @@ def _gather_kernel(results):
         dms = graph_ms(lambda: kernels().pack_gather(*dev, *outs, cap, cap))
         for part, g, p in zip(("q4", "t4", "dcb"), outs, plain):
             compare(f"pack_gather {part} ({cap}) B={B}, graph replay", g, p)
+        ptrs = [ctypes.c_void_p(x.data_ptr()) for x in (*dev, *outs)]
+        fms = graph_ms(lambda: empty.rtt_pack_gather(
+            ptrs[0], len(words[0]), ptrs[1], len(words[1]), ptrs[2],
+            len(words[2]), *ptrs[3:], B, cap, cap, ctypes.c_void_p(
+                torch.cuda.current_stream().cuda_stream)))
         out_words = B * (cap // 8 + cap // 8 + cap // 32)
-        nbytes = (4 * out_words + meta.nbytes
-                  + int(m.sum() + n.sum()) // 2 + int(n.sum()) // 8)
+        nbytes = gather_bytes(B, cap, meta)
         bg, byg = bound(nbytes, out_words * OPS_GATHER_WORD)
+        over = bg / (dms - fms) if dms > fms else None
         log(f"[gather] pack_gather ({cap},{W}) B={B}: byte-equal to its "
             f"plain version and to the host packers ({int((m == 0).sum())} "
             f"all-PAD items); {ms:.4f} ms a call (CUDA events), "
-            f"{dms:.4f} ms a launch in a CUDA graph, {100 * bg / dms:.2f} "
-            f"% of its bound {bg:.5f} ms by {byg} ({nbytes} bytes); plain "
-            f"CPU "
-            f"{plain_ms:.1f} ms, host packers {packers_ms:.2f} ms on 8 "
-            "threads")
+            f"{dms:.5f} ms a launch in a CUDA graph, {100 * bg / dms:.2f} "
+            f"% of its bound {bg:.5f} ms by {byg} ({nbytes} bytes); the "
+            f"empty kernel of its grid {fms:.5f} ms, the bound "
+            + (f"{100 * over:.1f} %" if over else "-") + " of the time "
+            f"above it; plain CPU {plain_ms:.1f} ms, host packers "
+            f"{packers_ms:.2f} ms on 8 threads")
         record_shape(results, "pack_gather", cap, W, B, "consensus",
                      max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bg,
-                     bound_by=byg, graph_ms=dms, host_packers_ms=packers_ms)
+                     bound_by=byg, graph_ms=dms, graph_floor_ms=fms,
+                     bound_share_over_floor=over,
+                     host_packers_ms=packers_ms)
 
 
 def _gather_bench(threads, results, state):
@@ -2493,18 +2465,27 @@ def main() -> int:
     log(smi)
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
+    from racon_tpu_torch.benchmarks import kernel_ab
+
+    state = {}  # what phases 3 and 4 leave for phases 8 and 10
     with tempfile.TemporaryDirectory() as tmp:
         procs = start_ptxas(tmp)
+        # J6's empty kernel of the same grid, for phase 10's floor
+        floor, floor_so = kernel_ab.start_gather_variants(
+            tmp, ("empty",))["empty"]
         try:
             build.kernels()
             log(f"[build] kernels built and loaded in "
                 f"{build.build_seconds:.1f} s")
             ptxas_report(procs)
+            if floor.wait():
+                raise SmokeFailure("the empty gather kernel did not build")
+            state["gather_empty"] = kernel_ab.load(floor_so)
         except SmokeFailure as e:
             sys.stderr.write(f"chip_smoke: FAILED: {e}\n")
             return 1
         finally:
-            for proc in procs.values():
+            for proc in (*procs.values(), floor):
                 if proc.poll() is None:
                     proc.kill()
                     proc.wait()
@@ -2517,7 +2498,6 @@ def main() -> int:
                    "bound_by": None, "library_ms": None, "shapes": [],
                    "launches_by_path": {}}
                for k, (src, rep) in KERNELS.items()}
-    state = {}  # what phases 3 and 4 leave for phases 8 and 10
     t0 = time.perf_counter()
     try:
         with tempfile.TemporaryDirectory() as wd4, \

@@ -4,16 +4,19 @@ kernels/csrc/nw_sweep.cu at W > 256), the packed2 walk (J4,
 kernels/csrc/packed_walk.cu), the rows walk (K6,
 kernels/csrc/rows_walk.cu), the panel sweep and its ablation variants
 (K7, K8, kernels/csrc/nw_sweep_t.cu), the int16 sweeps (K1-16 and K2-16,
-kernels/csrc/nw_sweep16.cu) and the Myers plane-to-move transform (J5,
-kernels/csrc/myers_moves.cu) of this checkout against those of another
+kernels/csrc/nw_sweep16.cu), the Myers plane-to-move transform (J5,
+kernels/csrc/myers_moves.cu) and the row gather (J6,
+kernels/csrc/pack_gather.cu) of this checkout against those of another
 version of the sources, on one card, timed in turns:
 
     python -m racon_tpu_torch.benchmarks.kernel_ab OTHER_CSRC [--json PATH]
-        [--only myers_sweep rle_walk strip walks sweep_t sweep16 moves]
+        [--only myers_sweep rle_walk strip walks sweep_t sweep16 moves
+                gather]
 
 OTHER_CSRC is a directory holding the other version's myers_sweep.cu,
 rle_walk.cu, nw_sweep.cu, packed_walk.cu, rows_walk.cu, nw_sweep_t.cu,
-nw_sweep16.cu, myers_moves.cu, sweep_scan.cuh and common.cuh (for
+nw_sweep16.cu, myers_moves.cu, pack_gather.cu, sweep_scan.cuh and
+common.cuh (for
 example unpacked with `git archive <commit>
 racon_tpu_torch/kernels/csrc | tar -x`); a file it lacks is taken from
 this checkout, so that a directory of one variant source (such as
@@ -59,7 +62,17 @@ B = 409 (the Myers "rle" payload's chunks) on planes this build's K3
 makes of seed 17's items; its bound counts the plane words of the
 tiles that hold a valid cell (geometry.moves_live_tiles) read and every
 move word written, or 40 ops a move word of those tiles (the whole
-planes' bound beside it).
+planes' bound beside it). J6 (`gather`, kernels/csrc/pack_gather.cu) at
+the gather route's chunks (640,128) B = 4096, (256,128) B = 4097 and
+(5120,1024) B = 8 on gather_items' inputs (seed 1476, as chip_smoke.py's
+phase 10), beside this build's variants (the unit rule fixed at "row",
+"pair" and "item", and the empty kernel of the same grid: the floor of a
+launch), every build but the empty one byte-equal to pack_gather_plain;
+times a launch inside a CUDA graph of 20 (graph_ms) in the order of the
+builds and back; the share of the bound (chip_smoke.py's bytes) and of
+the bound over the time above the floor; and the host's us of one
+gather.pack_gather call split into allocation, binding and launch
+(perf_counter, _host_split), the parent's three allocations beside them.
 
 Needs nvcc and a CUDA device (exit 2 without one). Prints the card's
 name and power limit first and one JSON line last.
@@ -80,7 +93,8 @@ import numpy as np
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "..", "kernels", "csrc")
 SOURCES = ("myers_sweep.cu", "rle_walk.cu", "nw_sweep.cu", "packed_walk.cu",
-           "rows_walk.cu", "nw_sweep_t.cu", "nw_sweep16.cu", "myers_moves.cu")
+           "rows_walk.cu", "nw_sweep_t.cu", "nw_sweep16.cu", "myers_moves.cu",
+           "pack_gather.cu")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
@@ -116,7 +130,8 @@ def load(out: str) -> ctypes.CDLL:
             "rtt_rows_walk": [P] * 4 + [I] * 4 + [P],
             "rtt_nw_sweep_t": [P] * 5 + [I] * 9 + [P],
             "rtt_nw_sweep16": [P] * 5 + [I] * 9 + [P],
-            "rtt_myers_moves": [P] * 3 + [I] * 4 + [P]}
+            "rtt_myers_moves": [P] * 3 + [I] * 4 + [P],
+            "rtt_pack_gather": [P, I, P, I, P, I] + [P] * 4 + [I] * 3 + [P]}
     for name, argtypes in sigs.items():
         fn = getattr(lib, name, None)
         if fn is not None:
@@ -595,11 +610,284 @@ def moves(libs, rng, stream):
     return rows
 
 
+GATHER_SHAPES = ((640, 128, 4096), (256, 128, 4097), (5120, 1024, 8))
+_MODE_RULE = "static int gather_mode(int m_cap, int n_cap, int B) {"
+_J_RULE = "  const int J = few ? 1 : whole;"
+_LOAD = "lo[j] = 32 * j < avail ? __ldg(src + 32 * j) : 0u;"
+_META = ("  const int qs = __ldg(mrow), m = __ldg(mrow + 1);\n"
+         "  const int ts = __ldg(mrow + 2), n = __ldg(mrow + 3);\n")
+# this checkout's pack_gather.cu with one line rewritten: the unit rule's
+# grouping fixed at each of the three, its lane words fixed at 1
+# ("j1") or at whole rows ("jrow"), kWarps warps a block whatever the
+# units ("w8"), the meta row loaded by lanes 0-3 and broadcast by shuffle
+# ("metashfl"); and three that give wrong bytes and
+# time a part: the kernel's body cut ("empty": the floor, the same
+# launches doing nothing), no meta load (items at fixed starts:
+# "nometa"), no blob load ("noblob": meta, then the stores)
+GATHER_VARIANTS = {
+    "row": [(_MODE_RULE, _MODE_RULE + "\n  return kRow;")],
+    "pair": [(_MODE_RULE, _MODE_RULE + "\n  return kPair;")],
+    "item": [(_MODE_RULE, _MODE_RULE + "\n  return kItem;")],
+    "j1": [(_J_RULE, "  const int J = 1;")],
+    "metashfl": [(_META, """  const int mv = lane < 4 ? __ldg(mrow + lane) : 0;
+  const int qs = __shfl_sync(kFull, mv, 0), m = __shfl_sync(kFull, mv, 1);
+  const int ts = __shfl_sync(kFull, mv, 2), n = __shfl_sync(kFull, mv, 3);
+""")],
+    "jrow": [(_J_RULE, "  const int J = whole;")],
+    "w8": [("  while (warps > 1 && units < static_cast<long long>(warps) * kSms)",
+            "  while (false)")],
+    "empty": [("  if (b >= B) return;  // warp-uniform", "  return;")],
+    "nometa": [(_META, "  const int qs = 8 * b, m = 8 * wq, ts = 8 * b, "
+                "n = 8 * wt;\n")],
+    "noblob": [(_LOAD, "lo[j] = 32 * j < avail ? avail : 0u;")]}
+GATHER_EXACT = ("row", "pair", "item", "j1", "jrow", "w8", "metashfl")
+
+
+def gather_items(rng, B, cap):
+    """The gather route's inputs for B items at cap: code blobs of layer
+    and backbone codes (0..4) and a deletion-cost bit blob 30 % clear, as
+    the stage makes them, and meta rows with odd starts, rows of length
+    cap and one ending at each blob's end, every 7th item all PAD.
+    Returns (word blobs, meta, the numpy blobs the host packers read)."""
+    from racon_tpu_torch.ops import gather
+
+    L = B * cap // 2 + cap + 7
+    q8 = rng.integers(0, 5, L).astype(np.int8)
+    t8 = rng.integers(0, 5, L).astype(np.int8)
+    dmask = rng.random(L) >= 0.3
+    lens = rng.integers(cap // 2, cap + 1, (2, B))
+    lens[:, 0] = cap
+    lens[:, 6::7] = 0
+    starts = rng.integers(0, L - cap, (2, B))
+    starts[:, 1] = L - lens[:, 1]
+    starts[:, 2::2] |= 1
+    meta = np.stack([starts[0], lens[0], starts[1], lens[1]],
+                    1).astype(np.int32)
+    words = (gather.code_words(q8), gather.code_words(t8),
+             gather.bit_words(dmask))
+    return words, meta, (q8, t8, dmask.view(np.int8))
+
+
+def gather_bytes(B, cap, meta) -> int:
+    """The bytes J6 must move (chip_smoke.py's count): every output word
+    written, the meta rows and the blob bytes the rows cover read once."""
+    m, n = meta[:, 1].astype(np.int64), meta[:, 3].astype(np.int64)
+    return (4 * B * (cap // 8 + cap // 8 + cap // 32) + meta.nbytes
+            + int(m.sum() + n.sum()) // 2 + int(n.sum()) // 8)
+
+
+def graph_ms(launch, reps=20, replays=5):
+    """CUDA-event ms a launch of `launch` (a raw kernel call on
+    preallocated outputs), captured reps times in a CUDA graph and the
+    graph replayed: the kernel's own time, where cuda_ms's loop around a
+    kernel of a few microseconds times the host's calls instead."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launch()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            launch()
+    return cuda_ms(graph.replay, reps=replays) / reps
+
+
+def start_gather_variants(tmp: str, names=tuple(GATHER_VARIANTS)) -> dict:
+    """nvcc on each GATHER_VARIANTS copy of pack_gather.cu named, all
+    started at once: {name: (process, library path)}."""
+    import shutil
+
+    procs = {}
+    for name in names:
+        edits = GATHER_VARIANTS[name]
+        src = os.path.join(tmp, f"gather_{name}")
+        os.makedirs(src)
+        shutil.copy(os.path.join(CSRC, "pack_gather.cu"), src)
+        path = os.path.join(src, "pack_gather.cu")
+        text = open(path).read()
+        for old, new in edits:
+            if old not in text:
+                raise SystemExit(f"kernel_ab: gather variant {name} no "
+                                 "longer applies")
+            text = text.replace(old, new)
+        open(path, "w").write(text)
+        so = src + ".so"
+        procs[name] = (start_build(src, so, ("pack_gather.cu",)), so)
+    return procs
+
+
+def _host_split(dev, m_cap, n_cap, calls=200, rounds=2):
+    """us of one gather.pack_gather call on the host (perf_counter, the
+    median over `rounds` turns of its parts in order and back, each the
+    mean of `calls` after a warm-up) and of its parts: the outputs'
+    allocation (one buffer and three views; the parent's three
+    torch.empty beside it), the binding's call on preallocated outputs
+    (its checks and the launch), and the same call at B = 0, where the C
+    launcher returns before it launches (the checks alone). The parent's
+    wrapper, line for line, beside them."""
+    import statistics
+    import time
+
+    import torch
+
+    from racon_tpu_torch.kernels import LAUNCHES
+    from racon_tpu_torch.kernels.build import kernels
+    from racon_tpu_torch.ops import gather
+
+    B = dev[3].shape[0]
+    widths = (m_cap // 2, n_cap // 2, n_cap // 8)
+    outs = gather.pack_gather(*dev, m_cap=m_cap, n_cap=n_cap)
+    meta0 = dev[3][:0]
+    outs0 = [x[:0] for x in outs]
+
+    def alloc_one():
+        offsets, _, nbytes = gather.out_layout(B, m_cap, n_cap)
+        buf = torch.empty(nbytes, dtype=torch.uint8, device=dev[3].device)
+        return [buf.as_strided((B, w), (w, 1), o)
+                for o, w in zip(offsets, widths)]
+
+    def alloc_three():
+        return [torch.empty((B, w), dtype=torch.uint8, device=dev[3].device)
+                for w in widths]
+
+    def parent_call():  # the parent's gather.pack_gather, line for line
+        meta = dev[3]
+        if meta.device.type == "cpu":
+            return gather.pack_gather_plain(*dev, m_cap=m_cap, n_cap=n_cap)
+        if meta.device.type != "cuda":
+            raise ValueError(f"unsupported device {meta.device}")
+        from racon_tpu_torch.kernels.build import kernels
+
+        B = meta.shape[0]
+        out = [torch.empty((B, w), dtype=torch.uint8, device=meta.device)
+               for w in (m_cap // 2, n_cap // 2, n_cap // 8)]
+        kernels().pack_gather(*dev, *out, m_cap, n_cap)
+        LAUNCHES["pack_gather"] += 1
+        return tuple(out)
+
+    parts = {"call": lambda: gather.pack_gather(*dev, m_cap=m_cap,
+                                                n_cap=n_cap),
+             "parent_call": parent_call, "alloc_one": alloc_one,
+             "alloc_three": alloc_three,
+             "binding": lambda: kernels().pack_gather(*dev, *outs, m_cap,
+                                                      n_cap),
+             "binding_b0": lambda: kernels().pack_gather(
+                 *dev[:3], meta0, *outs0, m_cap, n_cap)}
+    runs = {k: [] for k in parts}
+    order = list(parts)
+    for tag in (order + order[::-1]) * rounds:
+        fn = parts[tag]
+        for _ in range(20):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs[tag].append(1e6 * (time.perf_counter() - t0) / calls)
+        torch.cuda.synchronize()
+    us = {k: statistics.median(v) for k, v in runs.items()}
+    us["launch"] = us["binding"] - us["binding_b0"]
+    us["rest"] = us["call"] - us["alloc_one"] - us["binding"]
+    return us
+
+
+def gathers(libs, rng, stream):
+    """The row gather (J6) of both builds and of this build's variants (the
+    unit rule's variants of GATHER_VARIANTS: the empty kernel is the
+    floor) at the gather route's chunks on gather_items' inputs (seed
+    1476, as chip_smoke.py's phase 10): ms a launch inside a CUDA graph of
+    20, the median of four, in turns (the builds in order and back,
+    twice); every build of GATHER_EXACT byte-equal to pack_gather_plain.
+    Then the host time of one gather.pack_gather call and its parts."""
+    import statistics
+
+    import torch
+
+    from racon_tpu_torch.ops import gather
+
+    rng = np.random.default_rng(1476)
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = start_gather_variants(tmp)
+        from racon_tpu_torch.kernels.build import kernels
+
+        kernels()  # the binding, for the host split; nvcc runs meanwhile
+        for name, (proc, so) in procs.items():
+            if proc.wait():
+                raise SystemExit(f"kernel_ab: the gather {name} build "
+                                 "failed")
+        gl = {"other": libs["other"], "this": libs["this"],
+              **{k: load(so) for k, (_, so) in procs.items()}}
+        rows = []
+        for cap, W, B in GATHER_SHAPES:
+            words, meta, _ = gather_items(rng, B, cap)
+            dev = [torch.from_numpy(x).cuda() for x in (*words, meta)]
+            plain = gather.pack_gather_plain(
+                *(torch.from_numpy(x) for x in (*words, meta)), m_cap=cap,
+                n_cap=cap)
+            want = torch.cat([x.reshape(-1) for x in plain])
+            size = want.numel()
+            buf = torch.empty(size, dtype=torch.uint8, device="cuda")
+            outs = torch.split(buf, [x.numel() for x in plain])
+            ptrs = [ptr(x) for x in (*dev, *outs)]
+
+            def run(lib):
+                rc = lib.rtt_pack_gather(ptrs[0], len(words[0]), ptrs[1],
+                                         len(words[1]), ptrs[2],
+                                         len(words[2]), *ptrs[3:], B, cap,
+                                         cap, stream())
+                if rc:
+                    raise SystemExit(f"rtt_pack_gather: error {rc}")
+
+            for tag, lib in gl.items():
+                if tag not in ("other", "this", *GATHER_EXACT):
+                    continue
+                buf.fill_(0xA7)  # neither PAD nibbles nor set bits
+                run(lib)
+                torch.cuda.synchronize()
+                if not torch.equal(buf.cpu(), want):
+                    raise SystemExit(f"gather ({cap},{W}) B={B}: {tag} "
+                                     "differs from pack_gather_plain")
+            order = list(gl)
+            times = {k: [] for k in order}
+            for tag in (order + order[::-1]) * 2:
+                times[tag].append(graph_ms(lambda: run(gl[tag])))
+            bms, by = bound_ms(gather_bytes(B, cap, meta),
+                               B * (cap // 8 + cap // 8 + cap // 32) * 10)
+            row = {"kernel": "pack_gather", "shape": [cap, W], "B": B,
+                   "bound_ms": bms, "bound_by": by, "byte_equal": True}
+            for tag, ts in times.items():
+                ms = statistics.median(ts)
+                row[tag] = {"ms_runs": ts, "ms": ms, "bound_share": bms / ms}
+            floor = row["empty"]["ms"]
+            for tag in ("other", "this", *GATHER_EXACT):
+                above = row[tag]["ms"] - floor
+                row[tag]["bound_share_over_floor"] = (
+                    bms / above if above > 0 else None)
+            row["host_us"] = _host_split(dev, cap, cap)
+            this = row["this"]
+            print(f"gather ({cap},{W}) B={B}: "
+                  + ", ".join(f"{k} {row[k]['ms']:.5f}" for k in order)
+                  + f" ms a launch in a graph (this "
+                  f"{row['other']['ms'] / this['ms']:.2f}x the other); "
+                  f"bound {bms:.5f} ms by {by}: "
+                  f"{100 * this['bound_share']:.1f} % of this, floor "
+                  f"{floor:.5f} ms; host us " + ", ".join(
+                      f"{k} {v:.2f}" for k, v in row["host_us"].items()),
+                  flush=True)
+            rows.append(row)
+            del buf, outs, dev
+            torch.cuda.empty_cache()
+    return rows
+
+
 # each section's kernels of both builds, in this order; the first three
 # draw their items from one generator (seed 7), the others from their own
 SECTIONS = {"myers_sweep": myers_sweeps, "rle_walk": rle_walks,
             "strip": strip_sweeps, "walks": walks, "sweep_t": sweep_t,
-            "sweep16": sweep16, "moves": moves}
+            "sweep16": sweep16, "moves": moves, "gather": gathers}
 # the sources each section builds (both versions)
 SECTION_SOURCES = {"myers_sweep": ("myers_sweep.cu",),
                    "rle_walk": ("rle_walk.cu", "nw_sweep.cu"),
@@ -608,7 +896,8 @@ SECTION_SOURCES = {"myers_sweep": ("myers_sweep.cu",),
                              "rows_walk.cu"),
                    "sweep_t": ("nw_sweep_t.cu", "nw_sweep.cu"),
                    "sweep16": ("nw_sweep16.cu", "nw_sweep.cu"),
-                   "moves": ("myers_moves.cu", "myers_sweep.cu")}
+                   "moves": ("myers_moves.cu", "myers_sweep.cu"),
+                   "gather": ("pack_gather.cu",)}
 
 
 def main() -> int:

@@ -16,17 +16,41 @@
 // e >> 3 at bits 4 (e & 7), of the deletion-cost blob in word e >> 5 at
 // bit e & 31. The bit blob is indexed by word, as _gather_bit_cols does,
 // not by byte as _gather_bit_rows does (the reference's fault C1: its
-// stage uploads that blob as words).
+// stage uploads that blob as words). Output word w of a row is then blob
+// words s + w and s + w + 1 funnel-shifted right by sh, where s and sh
+// (the row's word offset and shift: start >> 3 and 4 (start & 7) for
+// nibbles, start >> 5 and start & 31 for bits) hold for the whole row.
 //
-// Design on the H100: one thread per 32-bit output word (8 codes or 32
-// bits). A thread reads the two blob words its elements straddle and
-// realigns them with one funnel shift (the reference's word fetch plus
-// funnel, nw_kernel.py:1490-1500), then masks in the fill past the row's
-// length. Consecutive threads write consecutive words of a row, and rows
-// of one output follow each other, so every warp's store is coalesced; the
-// loads of neighbouring threads share their words through L1. What bounds
-// it: bytes (each output word written once, about as many read); at the
-// consensus tiers a launch moves a few MB, so launch latency dominates.
+// What bounds it on the H100: bytes (each output word written once, each
+// blob word the rows cover read once: 4.9 MB, 1.5 us of HBM at the
+// consensus stage's (640,128) B = 4096), and below that a fixed cost: the
+// launch, then two dependent loads (an item's meta row, then its blob
+// words) before the first store; at a small B only that chain counts.
+// The design cuts everything else:
+// - a warp is one unit (b, r): item b, and r of the item's units from
+//   blockIdx.y, so no division stands before the meta load. A unit holds
+//   row segments of its item, grouped as gather_mode says (at the
+//   consensus tiers its three rows whole: one wave, 4096 warps at
+//   B = 4096, 31 an SM). A segment is at most 32 kJ words; where units of
+//   whole rows would give fewer than kFewUnits warps (a small B),
+//   segments of 32 words, so that (5120,1024) B = 8 runs 160 warps of a
+//   short chain each (geometry.gather_units mirrors the rule);
+// - every lane reads the item's meta row at one address: one request a
+//   warp, broadcast by the memory system; meta once a unit, not once a
+//   word, and no shuffle on the chain;
+// - lane l loads blob words s + w0 + l + 32 j of each segment, coalesced,
+//   every load of the unit issued before the first is used, each word the
+//   segment needs once (no word past the row's last element, none past
+//   the blob; those read as 0). The high neighbour of the funnel shift
+//   comes from lane l + 1 by shuffle; lane 31 takes lane 0's word of the
+//   next j, and the segment's last word is the one load past its outputs;
+// - lane l stores output words w0 + l + 32 j: 128-byte warp stores, the
+//   PAD nibbles or set bits past m or n masked in by one clamped funnel
+//   shift;
+// - 32-bit index math (blobs are under 2^31 words; a row's output base is
+//   the one 64-bit product a segment).
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
@@ -34,96 +58,203 @@ namespace {
 using namespace rtt;
 
 constexpr uint32_t kPadWord = 0x55555555u;  // eight PAD_CODE nibbles
-constexpr int kThreads = 256;
+constexpr int kJ = 4;         // words a lane loads of a segment, at most;
+                              // geometry.GATHER_LANE_WORDS
+constexpr int kWarps = 8;     // warps a block, at most;
+                              // geometry.GATHER_WARPS
+constexpr int kSms = 132;     // SMs of the H100 the block rule counts
+constexpr int kFewUnits = 4 * kSms;  // fewer units of whole rows: J = 1;
+                                     // geometry.GATHER_FEW_UNITS
 
-// The 32 bits of a blob from bit `pos` on (words past the blob read 0).
-__device__ __forceinline__ uint32_t fetch(const uint32_t* __restrict__ blob,
-                                          long long nwords, long long pos) {
-  const long long s = pos >> 5;
-  const uint32_t lo = s < nwords ? __ldg(blob + s) : 0u;
-  const uint32_t hi = s + 1 < nwords ? __ldg(blob + s + 1) : 0u;
-  return __funnelshift_r(lo, hi, static_cast<int>(pos & 31));
+// How a unit groups an item's row segments (geometry.GATHER_MODES): a row
+// segment alone, the query's apart from the target's with its deletion
+// bits, or all three.
+enum : int { kRow = 0, kPair = 1, kItem = 2 };
+
+// Lane words of a segment that holds a whole row: the fewest, at most kJ,
+// that hold the longer row.
+static int whole_row_words(int m_cap, int n_cap) {
+  return std::min(kJ, (std::max(m_cap, n_cap) / 8 + 31) / 32);
 }
 
-// Output word w of a code row: elements start + 8w .. start + 8w + 7,
-// PAD_CODE from element len of the row on.
-__device__ __forceinline__ uint32_t nib_word(const uint32_t* __restrict__ blob,
-                                             long long nwords, int start,
-                                             int len, int w) {
-  const int rel = len - 8 * w;
-  if (rel <= 0) return kPadWord;
-  const uint32_t v = fetch(blob, nwords, 4 * (start + 8LL * w));
-  if (rel >= 8) return v;
-  const uint32_t keep = (1u << (4 * rel)) - 1u;
-  return (v & keep) | (kPadWord & ~keep);
+// Whether units of whole rows would give fewer than kFewUnits warps (a
+// small B): one warp's chain of dependent loads and instructions then
+// sets the time, and shorter warps, more of them, win.
+static bool few_units(int m_cap, int n_cap, int B) {
+  const int longer = std::max(m_cap, n_cap) / 8;
+  const int S = 32 * whole_row_words(m_cap, n_cap);
+  return static_cast<long long>(B) * ((longer + S - 1) / S) < kFewUnits;
 }
 
-// Output word w of a deletion-cost row: bits start + 32w .. + 31, set
-// from bit len of the row on.
-__device__ __forceinline__ uint32_t bit_word(const uint32_t* __restrict__ blob,
-                                             long long nwords, int start,
-                                             int len, int w) {
-  const int rel = len - 32 * w;
-  if (rel <= 0) return kFull;
-  const uint32_t v = fetch(blob, nwords, start + 32LL * w);
-  if (rel >= 32) return v;
-  return v | ~((1u << rel) - 1u);
+static int gather_mode(int m_cap, int n_cap, int B) {
+  return few_units(m_cap, n_cap, B) ? kPair : kItem;
 }
 
-// Threads 0 .. B*wq - 1 write q4's words, the next B*wt t4's, the last
-// B*wd dcb's; each output is (B, words a row) row-major.
-__global__ void __launch_bounds__(kThreads)
-    pack_gather_kernel(const uint32_t* __restrict__ qb, long long nq,
-                       const uint32_t* __restrict__ tb, long long nt,
-                       const uint32_t* __restrict__ db, long long nd,
+// One row segment as lane `lane` sees it: the row's elements start at
+// `start` of a blob of `nwords` words, `len` of them, PerWord (8 or 32)
+// to a word; the segment is output words [w0, w1) of the row at `row`, J
+// lane words (J + 1 load slots: lane 0's last is the next j's first).
+template <int PerWord, int J>
+struct Seg {
+  static constexpr int kWidth = 32 / PerWord;  // bits an element
+  static constexpr uint32_t kFill = PerWord == 8 ? kPadWord : kFull;
+  const uint32_t* src;  // blob word s + w0 + lane
+  uint32_t* dst;        // output word w0 + lane
+  int avail;  // slot j loads where 32 j < avail: words the row needs, up
+              // to w1 and inside the blob, from the lane's first on
+  int outs;   // slot j stores where 32 j < outs (w1 - w0 - lane)
+  int rel;    // elements of the row from the lane's first output word on
+  int sh;     // the row's shift
+  int n;      // w1 - w0, warp-uniform (0: the unit holds no segment here)
+  uint32_t lo[J + 1];
+
+  __device__ __forceinline__ Seg(const uint32_t* blob, int nwords, int start,
+                                 int len, int w0, int w1, uint32_t* row,
+                                 int lane, bool active) {
+    constexpr int kShift = PerWord == 8 ? 3 : 5;
+    const int s = static_cast<int>(static_cast<uint32_t>(start) >> kShift);
+    const int last =
+        len > 0 ? static_cast<int>((static_cast<uint32_t>(start) +
+                                    static_cast<uint32_t>(len) - 1u) >>
+                                   kShift) - s
+                : -1;
+    sh = (start & (PerWord - 1)) * kWidth;
+    n = active ? w1 - w0 : 0;
+    avail = active ? min(min(w1, last), nwords - 1 - s) - w0 - lane + 1 : 0;
+    outs = w1 - w0 - lane;
+    rel = len - PerWord * (w0 + lane);
+    src = blob + (s + w0 + lane);
+    dst = row + (w0 + lane);
+  }
+
+  // Every slot's load at once, coalesced; 0 where the slot holds no word
+  // the row needs (past its last element, past w1, past the blob).
+  __device__ __forceinline__ void load() {
+#pragma unroll
+    for (int j = 0; j <= J; ++j)
+      lo[j] = 32 * j < avail ? __ldg(src + 32 * j) : 0u;
+  }
+
+  // Output words w0 + lane + 32 j < w1: the funnel shift of the lane's
+  // word and its high neighbour (lane + 1's; lane 31 takes lane 0's of the
+  // next j), the fill masked in past len.
+  __device__ __forceinline__ void emit(int lane) {
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      if (32 * j >= n) break;  // warp-uniform
+      const uint32_t give = lane == 0 ? lo[j + 1] : lo[j];
+      const uint32_t hi = __shfl_sync(kFull, give, (lane + 1) & 31);
+      const uint32_t v = __funnelshift_r(lo[j], hi, sh);
+      // the low bits of the row's elements kept, min(that, 32) by the
+      // clamped funnel shift: 0 past len, all of them inside
+      const uint32_t keep = __funnelshift_lc(
+          kFull, 0u, kWidth * max(rel - 32 * PerWord * j, 0));
+      if (32 * j < outs) dst[32 * j] = (v & keep) | (kFill & ~keep);
+    }
+  }
+};
+
+// Unit (b, r): item b = blockIdx.x * warps a block + warp, r =
+// blockIdx.y of the item's upi units (no division on the way to the meta
+// load): segment kq of the item's query row, kt of its target row, kd of
+// its deletion bits, as the mode groups them (-1: none). Segments are
+// S = 32 J words (S / 4 of the bit row: the same target elements; one
+// lane word, two slots); nq, nt segments a row.
+template <int J>
+__global__ void __launch_bounds__(32 * kWarps)
+    pack_gather_kernel(const uint32_t* __restrict__ qb, int nq_words,
+                       const uint32_t* __restrict__ tb, int nt_words,
+                       const uint32_t* __restrict__ db, int nd_words,
                        const int32_t* __restrict__ meta,
                        uint32_t* __restrict__ q4, uint32_t* __restrict__ t4,
                        uint32_t* __restrict__ dcb, int B, int wq, int wt,
-                       int wd) {
-  long long idx = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
-  const long long nqw = static_cast<long long>(B) * wq;
-  const long long ntw = static_cast<long long>(B) * wt;
-  const long long ndw = static_cast<long long>(B) * wd;
-  if (idx < nqw) {
-    const int b = static_cast<int>(idx / wq);
-    q4[idx] = nib_word(qb, nq, meta[4 * b], meta[4 * b + 1],
-                       static_cast<int>(idx % wq));
-    return;
+                       int nq, int nt, int mode) {
+  constexpr int S = 32 * J;
+  const int lane = threadIdx.x & 31;
+  const int b = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (b >= B) return;  // warp-uniform
+  const int r = blockIdx.y;
+  int kq = -1, kt = -1, kd = -1;
+  if (mode == kItem) {
+    kq = r < nq ? r : -1;
+    kt = kd = r < nt ? r : -1;
+  } else if (r < nq) {
+    kq = r;
+  } else if (mode == kPair) {
+    kt = kd = r - nq;
+  } else if (r < nq + nt) {
+    kt = r - nq;
+  } else {
+    kd = r - nq - nt;
   }
-  idx -= nqw;
-  if (idx < ntw) {
-    const int b = static_cast<int>(idx / wt);
-    t4[idx] = nib_word(tb, nt, meta[4 * b + 2], meta[4 * b + 3],
-                       static_cast<int>(idx % wt));
-    return;
-  }
-  idx -= ntw;
-  if (idx < ndw) {
-    const int b = static_cast<int>(idx / wd);
-    dcb[idx] = bit_word(db, nd, meta[4 * b + 2], meta[4 * b + 3],
-                        static_cast<int>(idx % wd));
-  }
+
+  // the meta row, every lane at one address: one request a warp
+  const int32_t* mrow = meta + 4 * b;
+  const int qs = __ldg(mrow), m = __ldg(mrow + 1);
+  const int ts = __ldg(mrow + 2), n = __ldg(mrow + 3);
+
+  const int wd = wt >> 2;
+  Seg<8, J> q(qb, nq_words, qs, m, kq * S, min(kq * S + S, wq),
+              q4 + static_cast<size_t>(b) * wq, lane, kq >= 0);
+  Seg<8, J> t(tb, nt_words, ts, n, kt * S, min(kt * S + S, wt),
+              t4 + static_cast<size_t>(b) * wt, lane, kt >= 0);
+  Seg<32, 1> d(db, nd_words, ts, n, kd * (S / 4),
+               min(kd * (S / 4) + S / 4, wd),
+               dcb + static_cast<size_t>(b) * wd, lane, kd >= 0);
+  q.load();
+  t.load();
+  d.load();
+  q.emit(lane);
+  t.emit(lane);
+  d.emit(lane);
 }
 
 }  // namespace
 
 // q4 (B, m_cap/2), t4 (B, n_cap/2), dcb (B, n_cap/8) uint8 from the word
 // blobs qb (nq words), tb (nt), db (nd) and meta (B, 4) int32. m_cap a
-// multiple of 8, n_cap of 32 (checked by the bindings).
+// multiple of 8, n_cap of 32 (checked by the bindings). The unit rule
+// (geometry.gather_units): segments of S = 32 J words, J the fewest lane
+// words (at most kJ) that hold the longer row whole, grouped as an
+// item's three rows; where that gives fewer than kFewUnits units (a small
+// B), J = 1 and the query's segments apart from the target's (shorter
+// warps, more of them); warps a block halved from kWarps while the units
+// would fill fewer than kSms blocks; blockIdx.y the unit of an item.
 extern "C" int rtt_pack_gather(const int32_t* qb, int nq, const int32_t* tb,
                                int nt, const int32_t* db, int nd,
                                const int32_t* meta, uint8_t* q4, uint8_t* t4,
                                uint8_t* dcb, int B, int m_cap, int n_cap,
                                cudaStream_t stream) {
-  const int wq = m_cap / 8, wt = n_cap / 8, wd = n_cap / 32;
-  const long long total = static_cast<long long>(B) * (wq + wt + wd);
-  if (total == 0) return 0;
-  const long long blocks = (total + kThreads - 1) / kThreads;
-  pack_gather_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      reinterpret_cast<const uint32_t*>(qb), nq,
-      reinterpret_cast<const uint32_t*>(tb), nt,
-      reinterpret_cast<const uint32_t*>(db), nd, meta,
-      reinterpret_cast<uint32_t*>(q4), reinterpret_cast<uint32_t*>(t4),
-      reinterpret_cast<uint32_t*>(dcb), B, wq, wt, wd);
+  const int wq = m_cap / 8, wt = n_cap / 8;
+  const int whole = whole_row_words(m_cap, n_cap);
+  const bool few = few_units(m_cap, n_cap, B);
+  const int J = few ? 1 : whole;
+  const int S = 32 * J;
+  const int sq = (wq + S - 1) / S, st = (wt + S - 1) / S;
+  const int mode = gather_mode(m_cap, n_cap, B);
+  const int upi = mode == kItem ? std::max(sq, st)
+                                : sq + (mode == kPair ? st : 2 * st);
+  const long long units = static_cast<long long>(B) * upi;
+  if (units == 0) return 0;
+  int warps = kWarps;
+  while (warps > 1 && units < static_cast<long long>(warps) * kSms)
+    warps >>= 1;
+  const dim3 grid((B + warps - 1) / warps, upi);
+  const auto* q = reinterpret_cast<const uint32_t*>(qb);
+  const auto* t = reinterpret_cast<const uint32_t*>(tb);
+  const auto* d = reinterpret_cast<const uint32_t*>(db);
+  auto* q4w = reinterpret_cast<uint32_t*>(q4);
+  auto* t4w = reinterpret_cast<uint32_t*>(t4);
+  auto* dw = reinterpret_cast<uint32_t*>(dcb);
+#define RTT_GATHER(JJ)                                                     \
+  pack_gather_kernel<JJ><<<grid, 32 * warps, 0, stream>>>(                 \
+      q, nq, t, nt, d, nd, meta, q4w, t4w, dw, B, wq, wt, sq, st, mode)
+  switch (J) {
+    case 1: RTT_GATHER(1); break;
+    case 2: RTT_GATHER(2); break;
+    case 3: RTT_GATHER(3); break;
+    default: RTT_GATHER(4); break;
+  }
+#undef RTT_GATHER
   return RTT_LAUNCH_STATUS();
 }

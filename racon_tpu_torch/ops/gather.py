@@ -24,11 +24,14 @@ Layouts:
                            m or n, deletion-cost bits set past n
 
 On a CUDA tensor `pack_gather` launches kernels/csrc/pack_gather.cu and
-counts it as "pack_gather"; on a CPU tensor it runs pack_gather_plain;
-any other device raises.
+counts it as "pack_gather", its three outputs views of one allocation
+(out_layout); on a CPU tensor it runs pack_gather_plain; any other device
+raises.
 """
 
 from __future__ import annotations
+
+import functools
 
 import numpy as np
 import torch
@@ -39,6 +42,7 @@ from .geometry import PAD_CODE
 
 _M32 = 0xFFFFFFFF
 MAX_BLOB_ELEMS = 2 ** 31  # int32 element indices of the meta rows
+OUT_ALIGN = 256  # bytes: where each output of pack_gather's buffer starts
 
 
 def pack_codes4_flat(codes8: np.ndarray) -> np.ndarray:
@@ -100,6 +104,20 @@ def check_meta(meta: np.ndarray, q_words: int, t_words: int, *, m_cap: int,
         raise ValueError("meta rows run past their blobs")
 
 
+@functools.lru_cache(maxsize=256)
+def out_layout(B: int, m_cap: int, n_cap: int):
+    """Where pack_gather puts q4, t4 and dcb in the one buffer it
+    allocates: (byte offsets, row widths in bytes, buffer bytes). Each
+    output starts on an OUT_ALIGN boundary (the sweeps read code rows 16
+    bytes at a time)."""
+    widths = (m_cap // 2, n_cap // 2, n_cap // 8)
+    offsets, at = [], 0
+    for w in widths:
+        offsets.append(at)
+        at += -(-B * w // OUT_ALIGN) * OUT_ALIGN
+    return tuple(offsets), widths, at
+
+
 def pack_gather(qblob, tblob, dcblob, meta, *, m_cap, n_cap):
     """Code blobs qblob / tblob and bit blob dcblob (int32 words), meta
     (B, 4) int32, all on one device -> (q4, t4, dcb) uint8 there, the
@@ -113,8 +131,10 @@ def pack_gather(qblob, tblob, dcblob, meta, *, m_cap, n_cap):
     from ..kernels.build import kernels
 
     B = meta.shape[0]
-    out = [torch.empty((B, w), dtype=torch.uint8, device=meta.device)
-           for w in (m_cap // 2, n_cap // 2, n_cap // 8)]
+    offsets, widths, nbytes = out_layout(B, m_cap, n_cap)
+    buf = torch.empty(nbytes, dtype=torch.uint8, device=meta.device)
+    out = [buf.as_strided((B, w), (w, 1), o)
+           for o, w in zip(offsets, widths)]
     kernels().pack_gather(qblob, tblob, dcblob, meta, *out, m_cap, n_cap)
     LAUNCHES["pack_gather"] += 1
     return tuple(out)

@@ -321,6 +321,64 @@ def moves_live_tiles(m: np.ndarray, m_cap: int, n_cap: int,
     return int(per[g[None, :], rows].sum())
 
 
+# The row gather's unit rule (J6, kernels/csrc/pack_gather.cu: kJ, kWarps,
+# kSms, kFewUnits, gather_mode and rtt_pack_gather's rule). A warp is one
+# unit: row segments of one item, each of at most 32 * GATHER_LANE_WORDS
+# words (a quarter as many of the deletion-cost row, the same target
+# elements).
+GATHER_LANE_WORDS = 4     # words a lane loads of a segment, at most
+GATHER_WARPS = 8          # warps (units) a block, at most
+GATHER_SMS = 132          # SMs of the H100 the block rule counts
+GATHER_FEW_UNITS = 4 * GATHER_SMS  # fewer units of whole rows: J = 1
+# how a unit groups an item's segments k: "row" one segment; "pair" the
+# query's apart from the target's with its deletion bits; "item" all three
+GATHER_MODES = ("row", "pair", "item")
+
+
+def _gather_whole(m_cap: int, n_cap: int) -> tuple[int, int]:
+    """(lane words of a segment that holds a whole row: the fewest, at
+    most GATHER_LANE_WORDS, for the longer row; the segments of that
+    row at as many)."""
+    longer = max(m_cap, n_cap) // 8
+    J = min(GATHER_LANE_WORDS, -(-longer // 32))
+    return J, -(-longer // (32 * J))
+
+
+def gather_mode(m_cap: int, n_cap: int, B: int) -> str:
+    """The grouping the row gather launches with (gather_mode in
+    kernels/csrc/pack_gather.cu), picked by timing the three in turns
+    (benchmarks/kernel_ab.py --only gather, PERF.md): an item's three rows
+    a warp, or where that gives fewer than GATHER_FEW_UNITS units (a small
+    B), the query's segments apart from the target's."""
+    _, segs = _gather_whole(m_cap, n_cap)
+    return "pair" if B * segs < GATHER_FEW_UNITS else "item"
+
+
+def gather_units(m_cap: int, n_cap: int, B: int, mode: str | None = None,
+                 lane_words: int | None = None
+                 ) -> tuple[int, int, int, int, int]:
+    """(S, segments of the query row, of the target row, units an item,
+    warps a block) of one row-gather launch under `mode` (gather_mode's
+    by default): segments of S = 32 J words, J the fewest lane words (at
+    most GATHER_LANE_WORDS) that hold the longer row whole, or 1 where
+    units of whole rows would give fewer than GATHER_FEW_UNITS warps (a
+    small B: shorter warps, more of them); units an item by the
+    grouping; GATHER_WARPS warps a block, halved while the units would
+    fill fewer than GATHER_SMS blocks. `lane_words` fixes J (the variants
+    benchmarks/kernel_ab.py times)."""
+    mode = mode or gather_mode(m_cap, n_cap, B)
+    wq, wt = m_cap // 8, n_cap // 8
+    whole, segs = _gather_whole(m_cap, n_cap)
+    J = lane_words or (1 if B * segs < GATHER_FEW_UNITS else whole)
+    S = 32 * J
+    sq, st = -(-wq // S), -(-wt // S)
+    upi = {"row": sq + 2 * st, "pair": sq + st, "item": max(sq, st)}[mode]
+    warps = GATHER_WARPS
+    while warps > 1 and B * upi < warps * GATHER_SMS:
+        warps //= 2
+    return S, sq, st, upi, warps
+
+
 def _rle_stage_bytes(items: int, max_events: int) -> int:
     # `items` payload rows of E + 1 bytes, zeroed in whole 16-byte words
     return (items * (max_events + 1) + 15) // 16 * 16

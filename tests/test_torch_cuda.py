@@ -706,6 +706,65 @@ def test_pack_gather_matches_plain_and_packers(gpu, cap, B):
         assert np.array_equal(p.numpy(), h)
 
 
+def _gather_edges(seed, B, m_cap, n_cap):
+    """Word blobs and B meta rows at the row gather's edge cases (as
+    tests/test_torch_gather_lanes.py's lane model takes them): lengths the
+    cap, 0, 1, 7, 8, 9, 31, 32 and 33, every start mod 32, the first three
+    rows ending at each blob's last element (one blob a whole number of
+    bit words long, the other not); also the numpy blobs the host packers
+    read."""
+    from racon_tpu_torch.ops import gather
+
+    rng = np.random.default_rng(seed)
+    edges = (0, 1, 7, 8, 9, 31, 32, 33)
+    ql = np.array([m_cap] + [x for x in edges if x < m_cap])
+    tl = np.array([n_cap] + [x for x in edges if x < n_cap])
+    cap = max(m_cap, n_cap)
+    Lq, Lt = 4 * cap + 256, 4 * cap + 261
+    b = np.arange(B)
+    qlen, tlen = ql[b % len(ql)], tl[(b // 32) % len(tl)]
+    qs = 32 * rng.integers(0, (Lq - m_cap) // 32 - 1, B) + (b // len(ql)) % 32
+    ts = 32 * rng.integers(0, (Lt - n_cap) // 32 - 1, B) + b % 32
+    qs[:3], ts[:3] = Lq - qlen[:3], Lt - tlen[:3]
+    q8 = rng.integers(0, 5, Lq).astype(np.int8)
+    t8 = rng.integers(0, 5, Lt).astype(np.int8)
+    dmask = rng.random(Lt) >= 0.3
+    meta = np.stack([qs, qlen, ts, tlen], 1).astype(np.int32).reshape(B, 4)
+    words = (gather.code_words(q8), gather.code_words(t8),
+             gather.bit_words(dmask))
+    return words, meta, (q8, t8, dmask.view(np.int8))
+
+
+@pytest.mark.parametrize("m_cap,n_cap,B", [
+    (m, n, B) for m, n in ((256, 256), (640, 640), (1280, 1280),
+                           (2560, 2560), (5120, 5120), (10240, 10240),
+                           (40, 64), (264, 288), (2560, 640))
+    for B in (0, 1, 288)])
+def test_pack_gather_edge_cases(gpu, m_cap, n_cap, B):
+    """J6's kernel at the lane model's edge cases, B = 0 and 1 among them,
+    against its plain version and the host packers, byte for byte."""
+    from racon_tpu_torch.native import bindings
+    from racon_tpu_torch.ops import gather
+    from racon_tpu_torch.ops.geometry import PAD_CODE
+
+    words, meta, (q8, t8, del8) = _gather_edges(m_cap + n_cap + B, B, m_cap,
+                                                n_cap)
+    dev = [torch.from_numpy(w).to(gpu) for w in (*words, meta)]
+    got = gather.pack_gather(*dev, m_cap=m_cap, n_cap=n_cap)
+    torch.cuda.synchronize()
+    plain = gather.pack_gather_plain(
+        *(torch.from_numpy(w) for w in (*words, meta)), m_cap=m_cap,
+        n_cap=n_cap)
+    qs, m, ts, n = meta.T.astype(np.int64)
+    packers = (bindings.pack_rows_nib(q8, qs, qs + m, m_cap, PAD_CODE, 8),
+               bindings.pack_rows_nib(t8, ts, ts + n, n_cap, PAD_CODE, 8),
+               bindings.pack_rows_bits(del8, ts, ts + n, n_cap, 8))
+    for g, p, h in zip(got, plain, packers):
+        assert g.shape == p.shape and torch.equal(g.cpu(), p)
+        assert np.array_equal(p.numpy(), h)
+        assert g.data_ptr() % gather.OUT_ALIGN == 0
+
+
 def test_align_walk_gather_matches_dense_on_card(gpu):
     """The gather route's fused call against the dense one on the same
     rows, and on the mesh (cuda:0, cuda:0) in two shards."""

@@ -7,8 +7,9 @@ package and the port's dense route:
   port's host packers (bindings.pack_rows_nib / pack_rows_bits) over the
   same ranges, byte for byte, with odd starts, rows of length 0 and cap,
   a row ending at the blob's end and deletion-cost bits 30 % clear (where
-  a byte-indexed reading, the reference's fault C1, would differ); a
-  numpy model of kernels/csrc/pack_gather.cu's word arithmetic equals it;
+  a byte-indexed reading, the reference's fault C1, would differ); the
+  numpy model of kernels/csrc/pack_gather.cu's lanes
+  (tests/test_torch_gather_lanes.py) equals it;
 - align_walk_gather equals the dense align_walk_padded, and its body
   racon_tpu's gather core (align_walk_gather_core with its pure-jnp
   sweep) on the same blobs;
@@ -45,6 +46,7 @@ from racon_tpu_torch.ops import nw_kernel as nk
 from racon_tpu_torch.ops.geometry import PAD_CODE
 from racon_tpu_torch.parallel import mesh
 from racon_tpu_torch.polisher import create_polisher
+from test_torch_gather_lanes import _model as _lane_model
 
 torch.set_num_threads(2)
 ACGT = np.frombuffer(b"ACGT", np.uint8)
@@ -73,34 +75,6 @@ def _ranges(rng, L, B, cap):
 
 def _pack_nib(c8):
     return (c8[:, 0::2] | (c8[:, 1::2] << 4)).astype(np.uint8)
-
-
-def _kernel_model(words, start, length, cap, per_word):
-    """numpy model of pack_gather.cu: one 32-bit output word at a time,
-    the two blob words it straddles funnel-shifted (fetch) and the fill
-    masked in past the row's length (nib_word / bit_word). Returns the
-    rows as bytes."""
-    w32 = words.view(np.uint32).astype(np.uint64)
-    nwords = len(w32)
-    width = 32 // per_word
-    out = np.zeros((len(start), cap // per_word), np.uint32)
-    for b, (s, n) in enumerate(zip(start.tolist(), length.tolist())):
-        for w in range(cap // per_word):
-            rel = n - per_word * w
-            if rel <= 0:
-                out[b, w] = 0x55555555 if per_word == 8 else 0xFFFFFFFF
-                continue
-            pos = width * (s + per_word * w)
-            i = pos >> 5
-            lo = int(w32[i]) if i < nwords else 0
-            hi = int(w32[i + 1]) if i + 1 < nwords else 0
-            v = ((hi << 32 | lo) >> (pos & 31)) & 0xFFFFFFFF
-            if rel < per_word:
-                keep = (1 << (width * rel)) - 1
-                fill = 0x55555555 if per_word == 8 else 0xFFFFFFFF
-                v = (v & keep) | (fill & ~keep & 0xFFFFFFFF)
-            out[b, w] = v
-    return out.view(np.uint8)
 
 
 @pytest.mark.parametrize("cap,B", [(256, 40), (640, 24), (5120, 6)])
@@ -148,10 +122,9 @@ def test_plain_gather_matches_packers_and_jax(cap, B):
     assert not np.array_equal(got[2], np.packbits(c1, axis=1,
                                                   bitorder="little"))
 
-    # the kernel's word arithmetic
-    assert np.array_equal(_kernel_model(qw, qs, m, cap, 8), got[0])
-    assert np.array_equal(_kernel_model(tw, ts, n, cap, 8), got[1])
-    assert np.array_equal(_kernel_model(dw, ts, n, cap, 32), got[2])
+    # the kernel's lanes (the unit rule's grouping and segments)
+    for g, k in zip(got, _lane_model((qw, tw, dw), meta, cap, cap)):
+        assert np.array_equal(k, g)
 
 
 def _gather_case():
