@@ -1,0 +1,5 @@
+"""Read bases of all fragment-correction jobs in the window over its whole time, kbp/s."""
+
+
+def read(run):
+    return run.kbp_per_s
